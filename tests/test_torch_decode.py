@@ -18,9 +18,11 @@ from webgraph_ans_tpu.bvgraph.graph import Adjacency
 from webgraph_ans_tpu.bvgraph.random_access import ANSBvGraph as JaxGraph
 from webgraph_ans_tpu.bvgraph.store import compress_adjacency
 from webgraph_ans_tpu.ops import decode_jax
+from webgraph_ans_tpu.ops import reconstruct_device as jax_recon
 from webgraph_ans_tpu.ops.graph_decode import TpuGraphDecoder
 from webgraph_ans_torch.bvgraph.random_access import ANSBvGraph as TorchGraph
 from webgraph_ans_torch.ops import decode_torch
+from webgraph_ans_torch.ops import reconstruct_device as torch_recon
 from webgraph_ans_torch.ops.graph_decode import TorchGraphDecoder
 
 def _rand_adj(n=120, seed=5, dmax=9):
@@ -204,3 +206,71 @@ def test_cnr_model_lanes_match_xla(tmp_path, cnr2000, xla_decoder):
     np.testing.assert_array_equal(counts_t.numpy(), np.asarray(counts_j))
     np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_j))
     assert int(counts_t.sum()) > 0
+
+
+@pytest.mark.parametrize("name", list(ARTIFACTS))
+def test_raw_decode_aux_matches_xla(artifacts, name, xla_decoder):
+    """Aux mode (emit_aux=True): the [3cap + cap/8, L] rows, the token
+    counts and the aux cap of decode_blocks_plain equal decode_jax's."""
+    _, base, lanes = artifacts[name]
+    out_j, counts_j, cap = TpuGraphDecoder(JaxGraph.load(base)).decode_raw(
+        lanes, emit_aux=True)
+    dec = TorchGraphDecoder(TorchGraph.load(base), device="cpu")
+    out_t, counts_t, cap_t = dec.decode_raw(lanes, emit_aux=True)
+    assert cap_t == cap and out_t.shape[0] == 3 * cap + cap // 8
+    np.testing.assert_array_equal(_u32(out_t), np.asarray(out_j))
+    np.testing.assert_array_equal(counts_t.numpy(), np.asarray(counts_j))
+
+
+def test_raw_decode_aux_matches_pallas_interpret(artifacts, monkeypatch):
+    """Aux mode against the TPU kernel itself (decode_blocks_pallas,
+    emit_aux=True, interpret mode)."""
+    monkeypatch.setenv("WGT_PALLAS", "interpret")
+    _, base, lanes = artifacts["sampled4"]
+    jdec = TpuGraphDecoder(JaxGraph.load(base))
+    assert jdec._use_pallas(lanes)
+    out_p, counts_p, cap = jdec.decode_raw(lanes, emit_aux=True)
+    dec = TorchGraphDecoder(TorchGraph.load(base), device="cpu")
+    out_t, counts_t, _ = dec.decode_raw(lanes, cap=cap, emit_aux=True)
+    np.testing.assert_array_equal(_u32(out_t), np.asarray(out_p))
+    np.testing.assert_array_equal(counts_t.numpy(), np.asarray(counts_p))
+
+
+@pytest.mark.parametrize("name", list(ARTIFACTS))
+def test_parse_stats_matches_jax(artifacts, name, xla_decoder):
+    """The port's parse_stats gives the same outdegrees, parents and
+    reference depths as reconstruct_device.parse_stats on the same aux
+    decode."""
+    adj, base, lanes = artifacts[name]
+    out_j, _, cap = TpuGraphDecoder(JaxGraph.load(base)).decode_raw(
+        lanes, emit_aux=True)
+    n = adj.num_nodes
+    st_j = jax_recon.parse_stats(out_j, n, cap, depth_iters=0)
+    st_t = torch_recon.parse_stats(torch.from_numpy(
+        np.array(out_j).view(np.int32)), n, cap)
+    np.testing.assert_array_equal(st_t["d"].numpy(), np.asarray(st_j["d"]))
+    np.testing.assert_array_equal(st_t["parent"].numpy(),
+                                  np.asarray(st_j["parent"]))
+    np.testing.assert_array_equal(st_t["depth"].numpy(),
+                                  np.asarray(st_j["depth"]))
+    np.testing.assert_array_equal(st_t["d"].numpy(),
+                                  np.diff(adj.offsets.astype(np.int64)))
+
+
+def test_tighten_cap_aux(artifacts):
+    """tighten_cap(emit_aux=True) shrinks the aux cap to the quantum
+    covering tokens plus one summary step per node, apart from the token
+    cap."""
+    _, base, lanes = artifacts["serial"]
+    dec = TorchGraphDecoder(TorchGraph.load(base), device="cpu")
+    out, counts, cap = dec.decode_raw(lanes, emit_aux=True)
+    pl = dec.plan(lanes)
+    tight = dec.tighten_cap(lanes, emit_aux=True)
+    steps = counts.numpy() + (pl["ends_np"] - pl["starts_np"])
+    assert tight == decode_torch.round_cap(dec.params, int(steps.max()))
+    assert tight <= cap and pl["cap_aux"] == tight
+    out2, _, cap2 = dec.decode_raw(lanes, emit_aux=True)
+    assert cap2 == tight
+    codes = torch_recon.unpack_nibbles(out2[3 * cap2:], cap2)
+    assert int((codes == decode_torch.NIB_SUM).sum()) == dec.num_nodes
+    np.testing.assert_array_equal(out2[:cap2].numpy(), out[:cap2].numpy())

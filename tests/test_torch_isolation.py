@@ -12,7 +12,7 @@ import torch
 from webgraph_ans_torch import ANSBvGraph, TorchGraphDecoder, reconstruct
 from webgraph_ans_torch.bvgraph.graph import Adjacency
 from webgraph_ans_torch.bvgraph.store import compress_adjacency
-from webgraph_ans_torch.ops import decode_cuda
+from webgraph_ans_torch.ops import cuda_build, decode_cuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -90,16 +90,20 @@ def test_kernel_build_command(monkeypatch, tmp_path):
     (nvcc itself is stubbed: it exists only where the card is)."""
     calls = []
 
-    def fake_run(cmd, **kw):
-        calls.append(cmd)
-        open(cmd[cmd.index("-o") + 1], "wb").close()
-        return subprocess.CompletedProcess(cmd, 0, "", "ptxas info")
+    class FakeNvcc:
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            calls.append(cmd)
+            open(cmd[cmd.index("-o") + 1], "wb").close()
+
+        def communicate(self):
+            return "ptxas info", None
 
     lib = str(tmp_path / "build" / "libdecode_blocks.so")
-    monkeypatch.setattr(decode_cuda, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(decode_cuda, "LIB_PATH", lib)
-    monkeypatch.setattr(decode_cuda, "_nvcc", lambda: "nvcc")
-    monkeypatch.setattr(decode_cuda.subprocess, "run", fake_run)
+    monkeypatch.setattr(cuda_build, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(cuda_build.subprocess, "Popen", FakeNvcc)
     info = decode_cuda.build()
     assert info["path"] == lib and os.path.exists(lib)
     cmd = calls[0]

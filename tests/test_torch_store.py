@@ -89,9 +89,12 @@ def test_loader_reads_jax_artifacts(tmp_path, encode_blocks, step):
     assert (tg.prelude.blocks is None) == (encode_blocks == 1)
     q = np.arange(len(lists), dtype=np.uint64)
     got = tg.successors_batch(q).to_lists()
-    assert got == jg.successors_batch(q).to_lists()
-    if step == 1:
-        assert got == lists
+    assert got == lists
+    if encode_blocks == 1 or step == 1:
+        # block-encoded and phase-sampled artifacts are held against the
+        # input graph only (ROADMAP §3: the reference's random access
+        # there skip-decodes across encode-block starts)
+        assert got == jg.successors_batch(q).to_lists()
 
 
 def test_device_hooks_raise(tmp_path):

@@ -64,6 +64,13 @@ class ANSBvGraph:
                 len(self._ef_blob)))
         self._packed = prelude.model.packed()
         self._stream = np.ascontiguousarray(prelude.stream, dtype=np.uint16)
+        # encode-block table (block-parallel artifacts): random access
+        # enters at a block start when one lies between x and its sample
+        b = prelude.blocks
+        self._blocks = (
+            np.ascontiguousarray(b[0] if b is not None else [], np.uint32),
+            np.ascontiguousarray(b[1] if b is not None else [], np.uint32),
+            np.ascontiguousarray(b[2] if b is not None else [], np.uint64))
 
     def __del__(self):
         h = getattr(self, "_ef_handle", None)
@@ -110,6 +117,12 @@ class ANSBvGraph:
     def num_arcs(self) -> int:
         return self.prelude.num_arcs
 
+    def _block_args(self):
+        starts, bstates, bptrs = self._blocks
+        return (native.as_ptr(starts, ctypes.c_uint32),
+                native.as_ptr(bstates, ctypes.c_uint32),
+                native.as_ptr(bptrs, ctypes.c_uint64), len(starts))
+
     def successors_batch(self, nodes) -> Adjacency:
         """Decodes the successor lists of the queried nodes (resolving
         reference chains recursively through the phase table)."""
@@ -135,6 +148,7 @@ class ANSBvGraph:
                     native.as_ptr(node_ids, ctypes.c_uint64),
                     len(node_ids),
                     p.phase_step,
+                    *self._block_args(),
                 )
             )
         else:
@@ -156,6 +170,7 @@ class ANSBvGraph:
                     native.as_ptr(node_ids, ctypes.c_uint64),
                     len(node_ids),
                     p.phase_step,
+                    *self._block_args(),
                 )
             )
         offsets, succs = native.fetch_adjacency(lib, h)
@@ -187,6 +202,7 @@ class ANSBvGraph:
                 num_queries,
                 seed,
                 p.phase_step,
+                *self._block_args(),
             )
         else:
             arcs = lib.wgt_ans_bench_random_ef(
@@ -205,6 +221,7 @@ class ANSBvGraph:
                 num_queries,
                 seed,
                 p.phase_step,
+                *self._block_args(),
             )
         if arcs < 0:
             raise RuntimeError(f"bench failed: {native.last_error()}")

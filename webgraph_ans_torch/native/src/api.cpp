@@ -14,6 +14,7 @@
 #include "ef.hpp"
 #include "spill.hpp"
 
+#include <algorithm>
 #include <cmath>
 #include <memory>
 #include <random>
@@ -593,9 +594,24 @@ struct RandomCtx {
   // bvgraph_decoder_factory.rs:46-58).
   const EliasFano* ef = nullptr;
   uint64_t ef_n = 0;  // number of sampled entries in `ef`
+  // Encode-block table of block-parallel artifacts (ascending start
+  // nodes, each with its own entry state and pointer): the rANS state
+  // resets at every block start, so a decode never runs across one.
+  const uint32_t* bstarts = nullptr;
+  const uint32_t* bstates = nullptr;
+  const uint64_t* bptrs = nullptr;
+  uint64_t nblocks = 0;
 
   uint64_t ptr_at(uint64_t j) const {
     return pointers ? pointers[j] : ef->get(ef_n - 1 - j);
+  }
+
+  void set_blocks(const uint32_t* starts, const uint32_t* bst,
+                  const uint64_t* bp, uint64_t nb) {
+    bstarts = starts;
+    bstates = bst;
+    bptrs = bp;
+    nblocks = starts ? nb : 0;
   }
 
   // Decodes node x (following reference chains) into `out`. With phase
@@ -614,8 +630,21 @@ struct RandomCtx {
   void decode_node_memo(
       uint64_t x, std::vector<uint64_t>& out,
       std::unordered_map<uint64_t, std::vector<uint64_t>>& memo) const {
+    // Enter at the later of the sampled node before x and the last
+    // encode-block start in (s, x], with that entry's own phase.
     uint64_t s = (x / step) * step;
-    ANSDecoder dec(*model, stream, ptr_at(x / step), states[x / step]);
+    uint64_t entry_ptr = ptr_at(x / step);
+    uint32_t entry_state = states[x / step];
+    if (nblocks) {
+      const uint32_t* it = std::upper_bound(bstarts, bstarts + nblocks, x);
+      if (it != bstarts && it[-1] > s) {
+        const size_t b = static_cast<size_t>(it - bstarts) - 1;
+        s = bstarts[b];
+        entry_ptr = bptrs[b];
+        entry_state = bstates[b];
+      }
+    }
+    ANSDecoder dec(*model, stream, entry_ptr, entry_state);
     std::vector<uint64_t> ref_buf;
     auto resolve = [&](uint64_t node) -> const std::vector<uint64_t>& {
       auto it = memo.find(node);
@@ -657,7 +686,9 @@ void* wgt_ans_decode_random(const uint16_t* stream, uint64_t stream_len,
                             const uint32_t* model_radix,
                             const uint32_t* model_fidelity,
                             const uint64_t* node_ids, uint64_t num_queries,
-                            uint32_t phase_step) {
+                            uint32_t phase_step, const uint32_t* block_starts,
+                            const uint32_t* block_states,
+                            const uint64_t* block_ptrs, uint64_t nblocks) {
   API_BEGIN
   (void)stream_len;
   (void)n;
@@ -666,6 +697,7 @@ void* wgt_ans_decode_random(const uint16_t* stream, uint64_t stream_len,
   DecoderModel dm = DecoderModel::from_encoder(em);
   RandomCtx ctx{stream, states, pointers, &dm, window, min_interval,
                 phase_step ? phase_step : 1};
+  ctx.set_blocks(block_starts, block_states, block_ptrs, nblocks);
   auto* r = new AdjResult();
   r->offsets.assign(1, 0);
   std::vector<uint64_t> out;
@@ -691,13 +723,16 @@ int64_t wgt_ans_bench_random(const uint16_t* stream, const uint32_t* states,
                              const uint32_t* model_radix,
                              const uint32_t* model_fidelity,
                              uint64_t num_queries, uint64_t seed,
-                             uint32_t phase_step) {
+                             uint32_t phase_step, const uint32_t* block_starts,
+                             const uint32_t* block_states,
+                             const uint64_t* block_ptrs, uint64_t nblocks) {
   API_BEGIN
   EncoderModel em = make_encoder_model(model_freqs, model_lens, model_log_m,
                                        model_radix, model_fidelity);
   DecoderModel dm = DecoderModel::from_encoder(em);
   RandomCtx ctx{stream, states, pointers, &dm, window, min_interval,
                 phase_step ? phase_step : 1};
+  ctx.set_blocks(block_starts, block_states, block_ptrs, nblocks);
   std::mt19937_64 rng(seed);
   std::vector<uint64_t> out;
   uint64_t arcs = 0;
@@ -720,7 +755,9 @@ void* wgt_ans_decode_random_ef(
     uint32_t min_interval, const uint16_t* model_freqs,
     const uint64_t* model_lens, const uint32_t* model_log_m,
     const uint32_t* model_radix, const uint32_t* model_fidelity,
-    const uint64_t* node_ids, uint64_t num_queries, uint32_t phase_step) {
+    const uint64_t* node_ids, uint64_t num_queries, uint32_t phase_step,
+    const uint32_t* block_starts, const uint32_t* block_states,
+    const uint64_t* block_ptrs, uint64_t nblocks) {
   API_BEGIN
   (void)stream_len;
   (void)n;
@@ -733,6 +770,7 @@ void* wgt_ans_decode_random_ef(
                 phase_step ? phase_step : 1,
                 static_cast<const EliasFano*>(ef_handle),
                 ef_count};
+  ctx.set_blocks(block_starts, block_states, block_ptrs, nblocks);
   auto* r = new AdjResult();
   r->offsets.assign(1, 0);
   std::vector<uint64_t> out;
@@ -751,7 +789,9 @@ int64_t wgt_ans_bench_random_ef(
     const uint16_t* model_freqs, const uint64_t* model_lens,
     const uint32_t* model_log_m, const uint32_t* model_radix,
     const uint32_t* model_fidelity, uint64_t num_queries, uint64_t seed,
-    uint32_t phase_step) {
+    uint32_t phase_step, const uint32_t* block_starts,
+    const uint32_t* block_states, const uint64_t* block_ptrs,
+    uint64_t nblocks) {
   API_BEGIN
   EncoderModel em = make_encoder_model(model_freqs, model_lens, model_log_m,
                                        model_radix, model_fidelity);
@@ -762,6 +802,7 @@ int64_t wgt_ans_bench_random_ef(
                 phase_step ? phase_step : 1,
                 static_cast<const EliasFano*>(ef_handle),
                 ef_count};
+  ctx.set_blocks(block_starts, block_states, block_ptrs, nblocks);
   std::mt19937_64 rng(seed);
   std::vector<uint64_t> out;
   uint64_t arcs = 0;

@@ -21,6 +21,16 @@ int32 holding u32 bit patterns. Row s < cap holds the token value of
 lockstep step s (0 on finished lanes); rows cap + s//8 hold component ids
 packed 4 bits per token, 8 tokens per word (token s at nibble s % 8, 0xF
 on finished lanes).
+
+Aux mode (`emit_aux=True`, the reconstruction mode the merged-emit planner
+reads in `reconstruct_device.parse_stats`): `out` grows to
+[3cap + cap//8, L]; rows cap..2cap (aux1) and 2cap..3cap (aux2) carry
+pre-resolved fields per token, and each node ends with one summary
+pseudo-step (nibble 0x9, not counted in `counts`): value = copied
+elements, aux1 = interval elements, aux2 = tail length. Per token: block
+tokens aux1 = running block sum, aux2 = (copied << 1) | copy flag;
+interval tokens aux1 = left extreme, aux2 = node-local element base;
+residual tokens aux1 = the absolute successor, aux2 = its element index.
 """
 
 from __future__ import annotations
@@ -38,6 +48,9 @@ M32 = 0xFFFFFFFF
 # Component ids double as FSM phase ids (reference: src/bvgraph/mod.rs:13-23).
 P_OUT, P_REF, P_BC, P_BLK, P_IC, P_IS, P_IL, P_FR, P_RES = range(9)
 P_DONE = 9
+# aux mode only: one summary pseudo-step per node, nibble 0x9
+P_SUM = 10
+NIB_SUM = 9
 _P_NODE_DONE = -1    # next-phase sentinel: node finished
 _P_KEEP = -2         # next-phase sentinel: keep the current phase
 
@@ -212,7 +225,8 @@ def ans_decode_step(tables: DecoderTables, ctab, state, ptr, comp, active):
 
 
 def decode_blocks_plain(tables: DecoderTables, states, ptrs, starts, ends,
-                        ring_seed, window: int, min_interval: int, cap: int):
+                        ring_seed, window: int, min_interval: int, cap: int,
+                        emit_aux: bool = False):
     """Grammar-FSM token decode of independent node ranges, plain PyTorch
     on the tensors' device. Lane l decodes every token of nodes
     starts[l]..ends[l]-1, entering the stream at (states[l], ptrs[l]),
@@ -222,7 +236,9 @@ def decode_blocks_plain(tables: DecoderTables, states, ptrs, starts, ends,
 
     cap must be a multiple of UNROLL. Returns (out [cap + cap//8, L]
     int32, counts int32 [L], ok bool [L]); see the module docstring for
-    the layout. Lanes with more than `cap` tokens report ok=False."""
+    the layout. Lanes with more than `cap` tokens report ok=False.
+    emit_aux=True decodes in aux mode (out [3cap + cap//8, L]; cap must
+    then cover tokens plus one summary step per node)."""
     if cap % UNROLL:
         raise ValueError(f"cap {cap} is not a multiple of {UNROLL}")
     dev = states.device
@@ -241,10 +257,13 @@ def decode_blocks_plain(tables: DecoderTables, states, ptrs, starts, ends,
     zero = torch.zeros(L, dtype=torch.int64, device=dev)
     d, bc, brem, bidx, bsum = zero, zero, zero, zero, zero
     copied, refd, extra, ivrem, resrem, outn = zero, zero, zero, zero, zero, zero
+    prevres, ivsum, ivl, fiv, tail = zero, zero, zero, zero, zero
     cpy = torch.zeros(L, dtype=torch.bool, device=dev)
 
-    out = torch.zeros((cap + cap // UNROLL, L), dtype=torch.int32, device=dev)
-    out[cap:] = -1          # untouched nibble words read as 0xF nibbles
+    vrows = 3 * cap if emit_aux else cap
+    out = torch.zeros((vrows + cap // UNROLL, L), dtype=torch.int32,
+                      device=dev)
+    out[vrows:] = -1        # untouched nibble words read as 0xF nibbles
     cpk = torch.full((L,), M32, dtype=torch.int64, device=dev)
 
     def tail_phase(e):
@@ -256,11 +275,15 @@ def decode_blocks_plain(tables: DecoderTables, states, ptrs, starts, ends,
         if not bool(active.any()):
             break
         p = phase
+        is_sum = active & (p == P_SUM)
+        dec_active = active & ~is_sum
+        resrem_pre, bsum_pre, copied_pre, cpy_pre = resrem, bsum, copied, cpy
         comp = torch.clamp(p, max=P_RES)
         vu, state, ptr = ans_decode_step(tables, ctab, state, ptr, comp,
-                                         active)
-        vu = torch.where(active, vu, 0)
-        nib = torch.where(active, comp, 0xF)
+                                         dec_active)
+        vu = torch.where(dec_active, vu, 0)
+        nib = torch.where(dec_active, comp,
+                          torch.where(is_sum, NIB_SUM, 0xF))
         v = torch.where(vu >= 1 << 31, vu - (1 << 32), vu)  # i32 view
 
         is_out = active & (p == P_OUT)
@@ -303,6 +326,36 @@ def decode_blocks_plain(tables: DecoderTables, states, ptrs, starts, ends,
         is_res = active & (p == P_RES)
         resrem = torch.where(is_fr | is_res, resrem - 1, resrem)
 
+        if emit_aux:
+            # per-token reconstruction fields (decode_jax.py:572-607)
+            is_is = active & (p == P_IS)
+            ivsum0 = torch.where(is_out, 0, ivsum)
+            ivl0 = ivl
+            n2i = (v >> 1) ^ -(v & 1)                     # nat2int
+            resval = torch.where(is_fr, x + n2i, prevres + v + 1)
+            prevres = torch.where(is_fr | is_res, resval, prevres)
+            left = torch.where(fiv != 0, x + n2i, ivl0 + 1 + v)
+            ilen = v + min_interval
+            ivl = torch.where(is_is, left,
+                              torch.where(is_il, ivl0 + ilen, ivl0))
+            fiv = torch.where(is_ic, 1, torch.where(is_is, 0, fiv))
+            ivsum = torch.where(is_il, ivsum0 + ilen, ivsum0)
+            tail = torch.where(is_out, 0, tail)
+            tail = torch.where(is_bc & (v == 0), refd, tail)
+            tail = torch.where(blocks_done,
+                               torch.where(bc % 2 == 0, refd - bsum, 0),
+                               tail)
+            aux1 = torch.where(is_blk, bsum_pre, 0)
+            aux2 = torch.where(is_blk, (copied_pre << 1) | cpy_pre.long(), 0)
+            aux1 = torch.where(is_is | is_il,
+                               torch.where(is_is, left, ivl0), aux1)
+            aux2 = torch.where(is_is | is_il, copied + ivsum0, aux2)
+            aux1 = torch.where(is_fr | is_res, resval, aux1)
+            aux2 = torch.where(is_fr | is_res, d - resrem_pre, aux2)
+            aux1 = torch.where(is_sum, ivsum0, aux1)
+            aux2 = torch.where(is_sum, tail, aux2)
+            vu = torch.where(is_sum, copied & M32, vu)
+
         enter_tail = ((is_out & (v > 0) & (window == 0))
                       | (is_ref & (v == 0)) | (is_bc & (v == 0))
                       | blocks_done)
@@ -332,17 +385,26 @@ def decode_blocks_plain(tables: DecoderTables, states, ptrs, starts, ends,
 
         node_done = nxt == _P_NODE_DONE
         x = torch.where(node_done, x + 1, x)
-        nxt = torch.where(node_done, torch.where(x >= ends, P_DONE, P_OUT),
-                          nxt)
+        if emit_aux:
+            # node end -> one summary pseudo-step, then the next node
+            nxt = torch.where(node_done, P_SUM, nxt)
+            nxt = torch.where(is_sum,
+                              torch.where(x >= ends, P_DONE, P_OUT), nxt)
+        else:
+            nxt = torch.where(node_done,
+                              torch.where(x >= ends, P_DONE, P_OUT), nxt)
         phase = torch.where(nxt == _P_KEEP, p, nxt)
-        outn = outn + active.long()
+        outn = outn + dec_active.long()
 
         sub = step % UNROLL
         if sub == 0:
             cpk = torch.full_like(cpk, M32)
         cpk = (cpk & ~(0xF << (4 * sub)) & M32) | (nib << (4 * sub))
         out[step] = _to_i32(vu)
-        out[cap + step // UNROLL] = _to_i32(cpk)
+        if emit_aux:
+            out[cap + step] = _to_i32(aux1)
+            out[2 * cap + step] = _to_i32(aux2)
+        out[vrows + step // UNROLL] = _to_i32(cpk)
     ok = phase == P_DONE
     return out, outn.to(torch.int32), ok
 

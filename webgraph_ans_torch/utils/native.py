@@ -103,16 +103,20 @@ def _declare(lib: ctypes.CDLL) -> None:
              u16p, u64p, u32p, u32p, u32p], void_p),
         "wgt_ans_decode_random": (
             [u16p, u64, u32p, u64p, u64, u32, u32,
-             u16p, u64p, u32p, u32p, u32p, u64p, u64, u32], void_p),
+             u16p, u64p, u32p, u32p, u32p, u64p, u64, u32,
+             u32p, u32p, u64p, u64], void_p),
         "wgt_ans_bench_random": (
             [u16p, u32p, u64p, u64, u32, u32,
-             u16p, u64p, u32p, u32p, u32p, u64, u64, u32], i64),
+             u16p, u64p, u32p, u32p, u32p, u64, u64, u32,
+             u32p, u32p, u64p, u64], i64),
         "wgt_ans_decode_random_ef": (
             [u16p, u64, u32p, void_p, u64, u64, u32, u32,
-             u16p, u64p, u32p, u32p, u32p, u64p, u64, u32], void_p),
+             u16p, u64p, u32p, u32p, u32p, u64p, u64, u32,
+             u32p, u32p, u64p, u64], void_p),
         "wgt_ans_bench_random_ef": (
             [u16p, u32p, void_p, u64, u64, u32, u32,
-             u16p, u64p, u32p, u32p, u32p, u64, u64, u32], i64),
+             u16p, u64p, u32p, u32p, u32p, u64, u64, u32,
+             u32p, u32p, u64p, u64], i64),
         "wgt_ans_encode_raw": ([u64p, u8p, u64, u16p, u64p, u32p, u32p, u32p], void_p),
         "wgt_ans_decode_raw": (
             [u16p, u64, u32, u8p, u64, u16p, u64p, u32p, u32p, u32p, u64p], i32),
