@@ -3,19 +3,22 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from webgraph_ans_torch/csrc (the token decode,
-decode_blocks, in token and aux mode, and the merged-emit decode,
-decode_emit), holds each bit-exact against its plain PyTorch version
-(tolerance 0: every output is an integer) and times it with CUDA events.
-Then it runs both main paths on cnr-2000 (tests/data/cnr-2000: 325,557
-nodes, 3,216,152 arcs), each compared bit for bit with the BVGraph input:
-the token path (the port's store, ANSBvGraph.load,
-TorchGraphDecoder.decode_tokens at 4096 lanes, reconstruct) and the
-merged-emit path (TorchGraphDecoder.decode_to_adjacency_device at 2048
-lanes, through rebalance and refinement into the verified steady state,
-checked through to_dense_csr). Each phase prints one JSON line; any
-failure raises and exits non-zero. The line before the last lists the
-kernels; the last line is the device record. Exits 1 without printing a
-result when CUDA is not available.
+decode_blocks, in token and aux mode, the merged-emit decode, decode_emit,
+and the lane-parallel rANS encode, encode_blocks), holds each bit-exact
+against its plain PyTorch version (tolerance 0: every output is an
+integer) and times it with CUDA events. Then it runs the main paths on
+cnr-2000 (tests/data/cnr-2000: 325,557 nodes, 3,216,152 arcs), each
+compared bit for bit with the BVGraph input: the token path (the port's
+store, ANSBvGraph.load, TorchGraphDecoder.decode_tokens at 4096 lanes,
+reconstruct), the merged-emit path
+(TorchGraphDecoder.decode_to_adjacency_device at 2048 lanes, through
+rebalance and refinement into the verified steady state, checked through
+to_dense_csr), and block-parallel compression (store with 512 encode
+blocks and the device model search, its artifact decoded back through
+both device paths and the sequential reader). Each phase prints one JSON
+line; any failure raises and exits non-zero. The line before the last
+lists the kernels; the last line is the device record. Exits 1 without
+printing a result when CUDA is not available.
 """
 
 from __future__ import annotations
@@ -58,6 +61,15 @@ OPS_PER_TOKEN = 40
 OPS_PER_WORD = 6
 OPS_PER_AUX_STEP = 12
 OPS_PER_EMIT_STEP = 20
+# Encode: per token (token and table-row addresses, fold count, the
+# division-free state update with its two corrections, the meta word and
+# the state row: about 40) and per emitted stream word (renorm test,
+# shift, pack and store: 6).
+OPS_PER_ENC_TOKEN = 40
+OPS_PER_ENC_WORD = 6
+ENCODE_BLOCKS = 512
+ENCODE_SMALL_BLOCKS = (8, 64)
+EDGE_GRAPHS = ([[]], [[], [], []], [[1], [], [0, 2]])
 # (name, window, max_ref_count, min_interval_length, phase_step)
 SMALL_CONFIGS = [
     ("w7_r3_i2", 7, 3, 2, 1),
@@ -213,16 +225,58 @@ def nvidia_smi_line() -> str:
 
 def ptxas_report(log: str) -> dict:
     """Registers and spills of each kernel instance in nvcc's -Xptxas -v
-    log, keyed by its template argument (emit_aux, or the window)."""
+    log, keyed by its template argument (emit_aux, or the window), or
+    "kernel" for a kernel that is no template."""
     out, key = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?I(Lb|Li)(\d+)E", ln)
+        m = re.search(r"Compiling entry function '(.*?)'", ln)
         if m:
-            key = ("aux" if m.group(2) == "1" else "token") \
-                if m.group(1) == "Lb" else f"W{m.group(2)}"
+            t = re.search(r"I(Lb|Li)(\d+)E", m.group(1))
+            if t is None:
+                key = "kernel"
+            elif t.group(1) == "Lb":
+                key = "aux" if t.group(2) == "1" else "token"
+            else:
+                key = f"W{t.group(2)}"
         elif key and ("registers" in ln or "spill" in ln):
             out.setdefault(key, []).append(ln.strip())
     return out
+
+
+def encode_args(plan):
+    return (plan.params, plan.tab, plan.tokens, plan.tstart, plan.tend,
+            plan.cap)
+
+
+def encode_bound(plan, wtotals) -> dict:
+    """Least time for one encode_blocks call: the table, the tokens and the
+    lane bounds read once; the artifact written once: the stream words
+    this run emitted (u16), a state (u32) and a pointer (u64) per node
+    start, and the lane records; and the operations of this run's tokens
+    and words. The kernel's padded layout (emit [cap*EP + cap, L], states
+    [cap, L]) is its own, not bytes the function needs; its size is
+    reported beside the bound as layout_bytes."""
+    L = plan.tstart.shape[0]
+    EP = (plan.params[9] + 2) // 2
+    words = int((wtotals.long() & 0xFFFFFFFF).sum())
+    nodes = int((plan.tokens[:, 1] == 0).sum())
+    read = plan.tab.numel() * 4 + plan.tokens.numel() * 4 + L * 8
+    written = words * 2 + nodes * (4 + 8) + L * (4 + 4 + 1)
+    layout = ((plan.cap * EP + plan.cap) * L * 4 + plan.cap * L * 4
+              + L * (4 + 4 + 1))
+    tokens = plan.tokens.shape[0]
+    ops = OPS_PER_ENC_TOKEN * tokens + OPS_PER_ENC_WORD * words
+    return {**_bound(read, written, ops), "tokens": tokens,
+            "stream_words": words, "node_starts": nodes,
+            "layout_bytes": read + layout}
+
+
+def models_equal(a, b) -> bool:
+    """Component by component: log_m, radix, fidelity and frequencies."""
+    return all((ca.log_m, ca.radix, ca.fidelity) == (cb.log_m, cb.radix,
+                                                     cb.fidelity)
+               and np.array_equal(ca.freqs, cb.freqs)
+               for ca, cb in zip(a.components, b.components))
 
 
 def codes_hit(nib: torch.Tensor) -> dict:
@@ -242,10 +296,14 @@ def main() -> int:
     from webgraph_ans_torch import (ANSBvGraph, TorchGraphDecoder,
                                     reconstruct, store, to_dense_csr)
     from webgraph_ans_torch.bvgraph.graph import Adjacency, load_bvgraph
-    from webgraph_ans_torch.bvgraph.store import compress_adjacency
+    from webgraph_ans_torch.bvgraph.sequential import ANSBvGraphSeq
+    from webgraph_ans_torch.bvgraph.store import (compress_adjacency,
+                                                  dump_tokens)
     from webgraph_ans_torch.bvgraph.synth import synth_web_graph
-    from webgraph_ans_torch.ops import cuda_build, decode_cuda, emit_cuda
-    from webgraph_ans_torch.ops import emit_post
+    from webgraph_ans_torch.ops import (cuda_build, decode_cuda, emit_cuda,
+                                        encode_cuda, emit_post)
+    from webgraph_ans_torch.ops.encode_torch import (encode_blocks_plain,
+                                                     encode_plan)
     from webgraph_ans_torch.ops.decode_torch import (decode_blocks_plain,
                                                      fetch_block_tokens)
     from webgraph_ans_torch.ops.emit_torch import decode_emit_plain
@@ -258,20 +316,22 @@ def main() -> int:
     emit("device", name=kind, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, count=torch.cuda.device_count())
 
-    # ---- 1. build both kernels from the checkout's sources, at once ----
+    # ---- 1. build the three kernels from the checkout's sources, at once
     t0 = time.perf_counter()
     built = cuda_build.build_many(
         [(decode_cuda.SOURCE, decode_cuda.LIB_PATH),
-         (emit_cuda.SOURCE, emit_cuda.LIB_PATH)], force=True)
+         (emit_cuda.SOURCE, emit_cuda.LIB_PATH),
+         (encode_cuda.SOURCE, encode_cuda.LIB_PATH)], force=True)
     emit("build", seconds=time.perf_counter() - t0, kernels=[
         {"kernel": name, "seconds": info["seconds"],
          "ptxas": ptxas_report(info["log"])}
-        for name, info in zip(("decode_blocks", "decode_emit"), built)])
+        for name, info in zip(("decode_blocks", "decode_emit",
+                               "encode_blocks"), built)])
 
     with tempfile.TemporaryDirectory() as tmp:
-        # ---- 2. compress cnr-2000 with the port's store ----
+        # ---- 2. compress cnr-2000 with the port's store (host) ----
         t0 = time.perf_counter()
-        store(CNR, os.path.join(tmp, "cnr"))
+        res_cnr = store(CNR, os.path.join(tmp, "cnr"))
         g = ANSBvGraph.load(os.path.join(tmp, "cnr"))
         emit("store", graph="cnr-2000", seconds=time.perf_counter() - t0,
              nodes=g.num_nodes, arcs=g.num_arcs,
@@ -552,7 +612,127 @@ def main() -> int:
              ms=t_emit, plain_ms=eplain_s * 1e3, library_ms=None,
              rows_used_max=int(ek[3].max()), **ebound)
 
-    # ---- 11. the kernels line ----
+        # ---- 11. encode kernel vs plain on small inputs: the 2000-node
+        # graph of phase 3 under each configuration, the edge graphs, and a
+        # cnr-2000 token prefix under the cnr-2000 model (the fold-threshold
+        # exponent passes 31 there) ----
+        cases = []
+        for name, w, r, mi, _step in SMALL_CONFIGS:
+            res = compress_adjacency(adj_small, w, r, mi)
+            vals_e, comps_e = dump_tokens(adj_small, w, r, mi,
+                                          res.est_tables)
+            cases += [(name, res.prelude.model, vals_e, comps_e, nb)
+                      for nb in ENCODE_SMALL_BLOCKS]
+        for lists_e in EDGE_GRAPHS:
+            adj_g = Adjacency.from_lists(lists_e)
+            res = compress_adjacency(adj_g, 7, 3, 2)
+            cases.append((f"edge_{lists_e}", res.prelude.model,
+                          *dump_tokens(adj_g, 7, 3, 2, res.est_tables), 4))
+        vals_c, comps_c = dump_tokens(adj, 7, 3, 2, res_cnr.est_tables)
+        K = int(np.nonzero(comps_c[:30000] == 0)[0][-1])
+        cases.append(("cnr_prefix", res_cnr.prelude.model, vals_c[:K],
+                      comps_c[:K], 8))
+        enc_small = []
+        for name, model, vals_e, comps_e, nb in cases:
+            eplan = encode_plan(model, vals_e, comps_e, nb, device=cuda)
+            cmp_e = compare(encode_cuda.encode_blocks(*encode_args(eplan)),
+                            encode_blocks_plain(*encode_args(eplan)))
+            enc_small.append({"case": name, "blocks": nb,
+                              "tokens": len(vals_e), "cap": eplan.cap,
+                              "max_folds": eplan.params[9], **cmp_e})
+        emit("encode_vs_plain_small", results=enc_small)
+        if not all(c["bit_equal"] for c in enc_small):
+            raise SystemExit("encode: kernel and plain version differ")
+
+        # ---- 12. block-parallel compression of cnr-2000 on the card: 512
+        # encode blocks, the device model search ----
+        encode_cuda.encode_blocks.launches = 0
+        base_b = os.path.join(tmp, "cnr_b512")
+        res_b, store_s = timed(lambda: store(
+            CNR, base_b, encode_blocks=ENCODE_BLOCKS,
+            use_tpu_model_search=True))
+        enc_launches = encode_cuda.encode_blocks.launches
+        serial_words = len(g.prelude.stream)
+        words_b = len(res_b.prelude.stream)
+        same_model = models_equal(res_b.prelude.model, g.prelude.model)
+        emit("store_blocks", graph="cnr-2000", blocks=ENCODE_BLOCKS,
+             seconds=store_s, stage_seconds=res_b.seconds,
+             ans_bytes=os.path.getsize(base_b + ".ans"),
+             stream_words=words_b, serial_stream_words=serial_words,
+             launches={"encode_blocks": enc_launches},
+             model_equals_host=same_model)
+        if enc_launches < 1:
+            raise SystemExit("block store never launched the encode kernel")
+        if words_b > serial_words + 2 * ENCODE_BLOCKS:
+            raise SystemExit("block store: stream grew more than 2 words "
+                             "per block")
+        if not same_model:
+            raise SystemExit("device model search chose another model")
+
+        # ---- 13. encode kernel vs plain on the cnr-2000 512-lane plan, and
+        # its times ----
+        cplan = encode_plan(res_b.prelude.model, vals_c, comps_c,
+                            ENCODE_BLOCKS, device=cuda)
+        ekres = encode_cuda.encode_blocks(*encode_args(cplan))
+        epres, enc_plain_s = timed(
+            lambda: encode_blocks_plain(*encode_args(cplan)))
+        cmp_enc = compare(ekres, epres)
+        t_enc = cuda_ms(lambda: encode_cuda.encode_blocks(
+            *encode_args(cplan)))
+        # the launch alone, without the wrapper's component-id check (one
+        # reduction and a host read)
+        t_launch = cuda_ms(lambda: encode_cuda._launch(*encode_args(cplan)))
+        enc_bound = encode_bound(cplan, ekres[3])
+        emit("encode_kernel_time", kernel="encode_blocks",
+             lanes=cplan.tstart.shape[0], cap=cplan.cap,
+             max_folds=cplan.params[9], ms=t_enc, launch_ms=t_launch,
+             plain_ms=enc_plain_s * 1e3, library_ms=None, **cmp_enc,
+             **enc_bound)
+        if not cmp_enc["bit_equal"]:
+            raise SystemExit("cnr-2000: encode kernel and plain version "
+                             "differ")
+
+        # ---- 14. the card-written artifact decodes back exactly: token
+        # drive, merged emit into the verified steady state, sequential ----
+        gb = ANSBvGraph.load(base_b)
+        t0 = time.perf_counter()
+        vals_b, comps_b = TorchGraphDecoder(gb).decode_tokens(LANES)
+        off_b, succs_b = reconstruct(vals_b, comps_b, n,
+                                     gb.prelude.min_interval_length)
+        tok_s = time.perf_counter() - t0
+        tok_exact = (np.array_equal(off_b, adj.offsets)
+                     and np.array_equal(succs_b, adj.succs))
+        bdec = TorchGraphDecoder(gb)
+        emit_calls = []
+        for _ in range(6):
+            res3, sec = timed(
+                lambda: bdec.decode_to_adjacency_device(EMIT_LANES))
+            bpl = bdec._plans[("emit", EMIT_LANES)]
+            emit_calls.append({"seconds": sec,
+                               "exact": exact_adjacency(res3),
+                               "verified": bool(bpl.get("verified"))})
+            if bpl.get("verified") and "fx_offs" in bpl.get("post_meta", {}):
+                break
+        res3, steady_b = timed(
+            lambda: bdec.decode_to_adjacency_device(EMIT_LANES))
+        emit_calls.append({"seconds": steady_b, "steady": True,
+                           "exact": exact_adjacency(res3)})
+        seq, seq_s = timed(lambda: ANSBvGraphSeq.load(base_b).decode_all())
+        seq_exact = (np.array_equal(seq.offsets, adj.offsets)
+                     and np.array_equal(seq.succs, adj.succs))
+        emit("blocks_roundtrip", graph="cnr-2000",
+             token_drive={"lanes": LANES, "seconds": tok_s,
+                          "exact": tok_exact},
+             merged_emit={"lanes": len(bpl["starts_np"]), "T": bpl["T"],
+                          "cap": bpl["cap"], "calls": emit_calls},
+             sequential={"seconds": seq_s, "exact": seq_exact})
+        if not (tok_exact and seq_exact
+                and all(c["exact"] for c in emit_calls)
+                and emit_calls[-2]["verified"]):
+            raise SystemExit("block artifact: a decode path is not exact, "
+                             "or the merged-emit plan never verified")
+
+    # ---- 15. the kernels line ----
     kernels = [{
         "name": "decode_blocks", "route": "cuda",
         "source": "webgraph_ans_torch/csrc/decode_blocks.cu",
@@ -582,6 +762,15 @@ def main() -> int:
         "plain_ms": eplain_s * 1e3, "bound_ms": ebound["bound_ms"],
         "bound_by": ebound["bound_by"], "library_ms": None,
         "lanes": len(epl["starts_np"]),
+    }, {
+        "name": "encode_blocks", "route": "cuda",
+        "source": "webgraph_ans_torch/csrc/encode_blocks.cu",
+        "replaces": "webgraph_ans_tpu/ops/encode_pallas.py:291",
+        "launches": enc_launches, "bit_equal": cmp_enc["bit_equal"],
+        "max_abs_err": cmp_enc["max_abs_err"], "ms": t_enc["median"],
+        "plain_ms": enc_plain_s * 1e3, "bound_ms": enc_bound["bound_ms"],
+        "bound_by": enc_bound["bound_by"], "library_ms": None,
+        "lanes": cplan.tstart.shape[0],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

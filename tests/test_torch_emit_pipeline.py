@@ -3,8 +3,8 @@ decode_to_adjacency_device, on the CPU (plain versions of the kernels):
 its planner against the JAX package's on the same artifacts, and the
 whole path against the input graph, through the verified steady state.
 
-Artifacts are written by the JAX package (the port has no block encoder
-yet) and read by both packages' loaders. The JAX planner runs as its own
+Artifacts are written by the JAX package and read by both packages'
+loaders. The JAX planner runs as its own
 CPU tests run it (XLA token decode, WGT_PALLAS=0). Everything is integer
 and compared exactly (tolerance 0).
 """

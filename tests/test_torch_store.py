@@ -73,8 +73,8 @@ def test_store_bytes_match_jax_cnr2000(tmp_path):
 
 @pytest.mark.parametrize("encode_blocks,step", [(1, 1), (4, 1), (4, 3)])
 def test_loader_reads_jax_artifacts(tmp_path, encode_blocks, step):
-    """Serial, block-encoded (written by the JAX device encoder, which the
-    port does not have yet) and phase-sampled artifacts."""
+    """Serial, block-encoded (written by the JAX device encoder) and
+    phase-sampled artifacts."""
     lists = _lists(180, 17, 11)
     res = jstore.compress_adjacency(JaxAdjacency.from_lists(lists), 7, 3, 2,
                                     encode_blocks=encode_blocks)
@@ -95,14 +95,6 @@ def test_loader_reads_jax_artifacts(tmp_path, encode_blocks, step):
         # input graph only (ROADMAP §3: the reference's random access
         # there skip-decodes across encode-block starts)
         assert got == jg.successors_batch(q).to_lists()
-
-
-def test_device_hooks_raise(tmp_path):
-    adj = TorchAdjacency.from_lists(_lists(50, 1, 6))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tstore.compress_adjacency(adj, encode_blocks=4)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tstore.compress_adjacency(adj, use_tpu_model_search=True)
 
 
 def test_port_load_bvgraph_matches_input():

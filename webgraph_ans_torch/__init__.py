@@ -1,12 +1,14 @@
 """webgraph-ans-torch: the PyTorch/CUDA port of webgraph-ans-tpu.
 
 Same artifacts (.ans/.states/.pointers), same host runtime (its own copy
-of the native C++ library), and lane-parallel decoders whose hot loops
-are CUDA kernels built for sm_90a on first use:
+of the native C++ library), and a lane-parallel encoder and decoders
+whose hot loops are CUDA kernels built for sm_90a on first use:
 
     from webgraph_ans_torch import (ANSBvGraph, TorchGraphDecoder,
                                     reconstruct, store, to_dense_csr)
     store("cnr-2000", "out")                      # 3-pass compression (host)
+    store("cnr-2000", "out_b512", encode_blocks=512,   # model search and
+          use_tpu_model_search=True)                   # encode on device
     g = ANSBvGraph.load("out")
     vals, comps = TorchGraphDecoder(g).decode_tokens(num_lanes=4096)
     offsets, succs = reconstruct(vals, comps, g.num_nodes,

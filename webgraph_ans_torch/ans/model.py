@@ -16,8 +16,8 @@ The only intentional divergence: ties between equal-frequency symbols are
 broken by symbol index (numpy stable argsort) where the reference's
 sort_unstable is arbitrary; both orders are valid inputs to scale_freqs.
 
-This module is the exact host model search; a device search is not ported
-yet.
+This module is the exact host model search; ops/model_torch.py runs the
+same search with every candidate a lane on the device.
 """
 
 from __future__ import annotations

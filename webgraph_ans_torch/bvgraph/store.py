@@ -8,7 +8,8 @@ Pass 3: BvComp with the SAME pass-1 entropy estimator (so passes 2 and 3 make
         the pass-2 model, capturing one (state, stream pointer) phase per node.
 
 The BvComp walks and the rANS encode run in the native runtime; model building
-runs in Python between the passes.
+runs in Python between the passes; with the device hooks, the model
+search and the pass-3 encode run in PyTorch/CUDA.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ import numpy as np
 
 from ..ans.model import ANSModel, build_model, model_report
 from ..ans.prelude import Prelude, save_pointers, save_states
+from ..ops.decode_torch import resolve_device
+from ..ops.encode_torch import lane_encode_tokens
+from ..ops.model_torch import build_model_torch
 from ..utils import native
 from . import estimators
 from .graph import Adjacency, load_bvgraph
@@ -38,6 +42,10 @@ class CompressionResult:
     # pass-1 entropy-estimator tables (the estimator that drove the pass-2/3
     # reference decisions); kept so tests can reproduce BvComp's token stream
     est_tables: "estimators.EntropyTables | None" = None
+    # host-clock seconds of the stages: histograms, model_search, encode
+    # and, on the block-parallel encode, tokens, encode_plan,
+    # encode_kernel, encode_assembly
+    seconds: dict = dataclasses.field(default_factory=dict)
 
 
 def _run_histogram_pass(adj: Adjacency, window: int, max_ref: int, min_interval: int,
@@ -302,14 +310,19 @@ def compress_adjacency(adj: Adjacency, compression_window: int = 7,
                        encode_blocks: int = 1,
                        spill_path: str | None = None,
                        spill_chunk_tokens: int = 1 << 22,
-                       safe_break_interval: int = 0) -> CompressionResult:
-    """encode_blocks > 1 (pass 3's rANS encode lane-parallel on the
-    device) is not ported yet and raises NotImplementedError; artifacts
-    written that way by the JAX package load and decode here all the
-    same. use_tpu_model_search raises likewise (the device model search is
-    not ported yet). encode_blocks=1 is the serial native encode
-    (bit-identical to the reference pipeline); with spill_path set it
-    runs out-of-core with O(spill_chunk_tokens) RAM.
+                       safe_break_interval: int = 0,
+                       device=None) -> CompressionResult:
+    """encode_blocks > 1 runs pass 3's rANS encode lane-parallel on the
+    device (ops/encode_torch.py, kernel ops/encode_cuda.py): the stream
+    splits into that many independent blocks at token-balanced node
+    boundaries, recorded in the prelude's block table.
+    use_tpu_model_search runs the model search of passes 1-2 on the
+    device (ops/model_torch.py; the same model as the host search).
+    encode_blocks=1 is the serial native encode (bit-identical to the
+    reference pipeline); with spill_path set it runs out-of-core with
+    O(spill_chunk_tokens) RAM. `device` is where the device stages run:
+    CUDA unless given (device="cpu" runs their plain PyTorch versions);
+    it is resolved only when a device stage runs.
 
     safe_break_interval > 0 forbids references at every k-th node, so no
     copy chain crosses those nodes — a format extension of this
@@ -317,74 +330,85 @@ def compress_adjacency(adj: Adjacency, compression_window: int = 7,
     max_ref, chains thousands deep) lane-splittable for the parallel
     device decoder, at a size cost of ~n/k forced-no-ref nodes (measured
     +0.3% on cnr-2000 hc at k=1024)."""
-    t0 = time.time()
     if safe_break_interval:
         native.get_lib().wgt_set_safe_break(safe_break_interval)
     try:
         return _compress_adjacency(
             adj, compression_window, max_ref_count, min_interval_length,
             use_tpu_model_search, max_frame_log2, encode_blocks,
-            spill_path, spill_chunk_tokens)
+            spill_path, spill_chunk_tokens, device)
     finally:
         if safe_break_interval:
             native.get_lib().wgt_set_safe_break(0)
 
 
-def _no_device_model_search():
-    raise NotImplementedError(
-        "use_tpu_model_search needs the device model search, which the "
-        "PyTorch port does not have yet (ROADMAP.md, modules to port, "
-        "item 7: model search)")
-
-
 def _build_models(adj, compression_window, max_ref_count,
                   min_interval_length, use_tpu_model_search,
-                  max_frame_log2):
+                  max_frame_log2, device, seconds):
     """Passes 1-2: bootstrap + refined model (shared by every encode of
-    the same graph/flags; reference random_access.rs:105-164)."""
-    t0 = time.time()
+    the same graph/flags; reference random_access.rs:105-164). With
+    use_tpu_model_search the model search runs on `device`. The stage
+    times go into `seconds`."""
+    if use_tpu_model_search:
+        device = resolve_device(device)
+
+        def search(hist):
+            return build_model_torch(hist, max_frame_log2, device=device)
+    else:
+        def search(hist):
+            return build_model(hist, max_frame_log2)
+
     # Pass 1: bootstrap model with the log2 estimator.
+    t0 = time.perf_counter()
     hist1 = _run_histogram_pass(
         adj, compression_window, max_ref_count, min_interval_length,
         estimators.LOG2, estimators.empty_tables(),
     )
-    if use_tpu_model_search:
-        _no_device_model_search()
-    model1 = build_model(hist1, max_frame_log2)
-    log.info("pass 1 (log2 histograms + model) in %.2fs", time.time() - t0)
+    t1 = time.perf_counter()
+    model1 = search(hist1)
+    t2 = time.perf_counter()
+    log.info("pass 1 (log2 histograms + model) in %.2fs", t2 - t0)
 
     # Pass 2: refined model under the pass-1 entropy estimator.
-    t1 = time.time()
     tables1 = estimators.entropy_tables(model1)
     hist2 = _run_histogram_pass(
         adj, compression_window, max_ref_count, min_interval_length,
         estimators.ENTROPY, tables1,
     )
-    model2 = build_model(hist2, max_frame_log2)
-    log.info("pass 2 (entropy histograms + model) in %.2fs", time.time() - t1)
+    t3 = time.perf_counter()
+    model2 = search(hist2)
+    t4 = time.perf_counter()
+    log.info("pass 2 (entropy histograms + model) in %.2fs", t4 - t2)
+    seconds.update(histograms=(t1 - t0) + (t3 - t2),
+                   model_search=(t2 - t1) + (t4 - t3))
     return model2, tables1, hist2
 
 
 def _encode_with_models(adj, model2, tables1, hist2, compression_window,
                         max_ref_count, min_interval_length, encode_blocks,
-                        spill_path, spill_chunk_tokens):
+                        spill_path, spill_chunk_tokens, device, seconds):
     """Pass 3: encode with the pass-2 model; selection still driven by
     the pass-1 estimator, exactly like the reference
-    (random_access.rs:166-196)."""
-    t2 = time.time()
+    (random_access.rs:166-196). encode_blocks > 1 encodes on `device`.
+    The stage times go into `seconds`."""
+    t2 = time.perf_counter()
     blocks = None
     if encode_blocks > 1:
-        raise NotImplementedError(
-            "encode_blocks > 1 needs the lane-parallel device encoder, which "
-            "the PyTorch port does not have yet (ROADMAP.md, modules to "
-            "port, item 5: lane-parallel encode)")
+        device = resolve_device(device)
+        vals, comps = dump_tokens(adj, compression_window, max_ref_count,
+                                  min_interval_length, tables1)
+        seconds["tokens"] = time.perf_counter() - t2
+        stream, states, pointers, final_state, blocks = lane_encode_tokens(
+            model2, vals, comps, num_blocks=encode_blocks, device=device,
+            seconds=seconds)
     else:
         stream, states, pointers, final_state = _run_encode_pass(
             adj, compression_window, max_ref_count, min_interval_length,
             tables1, model2, spill_path=spill_path,
             spill_chunk_tokens=spill_chunk_tokens,
         )
-    log.info("pass 3 (encode) in %.2fs", time.time() - t2)
+    seconds["encode"] = time.perf_counter() - t2
+    log.info("pass 3 (encode) in %.2fs", seconds["encode"])
 
     prelude = Prelude(
         model=model2,
@@ -397,45 +421,47 @@ def _encode_with_models(adj, model2, tables1, hist2, compression_window,
         blocks=blocks,
     )
     return CompressionResult(prelude, states, pointers,
-                             model_report(model2, hist2), tables1)
+                             model_report(model2, hist2), tables1, seconds)
 
 
 def _compress_adjacency(adj, compression_window, max_ref_count,
                         min_interval_length, use_tpu_model_search,
                         max_frame_log2, encode_blocks, spill_path,
-                        spill_chunk_tokens) -> CompressionResult:
+                        spill_chunk_tokens, device) -> CompressionResult:
+    seconds = {}
     model2, tables1, hist2 = _build_models(
         adj, compression_window, max_ref_count, min_interval_length,
-        use_tpu_model_search, max_frame_log2)
+        use_tpu_model_search, max_frame_log2, device, seconds)
     return _encode_with_models(
         adj, model2, tables1, hist2, compression_window, max_ref_count,
         min_interval_length, encode_blocks, spill_path,
-        spill_chunk_tokens)
+        spill_chunk_tokens, device, seconds)
 
 
 def store_layouts(basename: str, outputs, compression_window: int = 7,
                   max_ref_count: int = 3, min_interval_length: int = 2,
                   max_frame_log2: int = 12,
-                  safe_break_interval: int = 0):
+                  safe_break_interval: int = 0, device=None):
     """Compresses one graph into SEVERAL stream layouts (e.g. the serial
     single-stream file and a block-parallel file) while running the
     model passes 1-2 only ONCE — the layouts differ only in pass 3.
     `outputs` is a list of (new_basename, encode_blocks); returns the
     CompressionResult per output, artifacts identical to per-layout
-    store() calls (the passes are deterministic)."""
+    store() calls (the passes are deterministic). Block layouts encode on
+    `device` (see compress_adjacency)."""
     adj, _props = load_bvgraph(basename)
     if safe_break_interval:
         native.get_lib().wgt_set_safe_break(safe_break_interval)
     try:
         model2, tables1, hist2 = _build_models(
             adj, compression_window, max_ref_count, min_interval_length,
-            False, max_frame_log2)
+            False, max_frame_log2, None, {})
         results = []
         for new_basename, encode_blocks in outputs:
             res = _encode_with_models(
                 adj, model2, tables1, hist2, compression_window,
                 max_ref_count, min_interval_length, encode_blocks,
-                None, 1 << 22)
+                None, 1 << 22, device, {})
             res.prelude.save(new_basename)
             save_states(new_basename, res.states)
             save_pointers(new_basename, res.pointers)
@@ -455,7 +481,8 @@ def store(basename: str, new_basename: str, compression_window: int = 7,
           spill_path: str | None = None,
           spill_chunk_tokens: int = 1 << 22,
           streaming: bool = False,
-          safe_break_interval: int = 0) -> CompressionResult:
+          safe_break_interval: int = 0,
+          device=None) -> CompressionResult:
     """Recompresses the BVGraph at `basename` into `new_basename.{ans,pointers,states}`
     (reference: ANSBvGraph::store, random_access.rs:91-222).
 
@@ -470,7 +497,10 @@ def store(basename: str, new_basename: str, compression_window: int = 7,
     in varint chunks and pass-3 RAM stays O(spill_chunk_tokens), the
     reference's default RevBuffer behavior (src/bvgraph/writers/
     bvgraph_encoder.rs:159-174, src/utils/rev.rs). Bit-identical output;
-    serial encode only (encode_blocks must be 1)."""
+    serial encode only (encode_blocks must be 1).
+
+    encode_blocks > 1 and use_tpu_model_search run on `device` (CUDA
+    unless given; see compress_adjacency)."""
     if spill_path is not None and encode_blocks > 1:
         raise ValueError("spill_path requires the serial encoder "
                          "(encode_blocks=1)")
@@ -499,6 +529,7 @@ def store(basename: str, new_basename: str, compression_window: int = 7,
             spill_path=spill_path,
             spill_chunk_tokens=spill_chunk_tokens,
             safe_break_interval=safe_break_interval,
+            device=device,
         )
     prelude, states, pointers = result.prelude, result.states, result.pointers
     if phase_step > 1:

@@ -416,6 +416,15 @@ class TorchGraphDecoder:
                                     len(ent) - 1)]
             bounds[0], bounds[-1] = 0, n
             bounds = np.maximum.accumulate(bounds)
+            if blocks is not None:
+                # no lane may cross an encode-block start (the rANS state
+                # resets there): split lanes at the starts they contain.
+                # The bounds are then the block table's starts plus 0 and
+                # n whatever the bisection chose; it only places the empty
+                # lanes, which keeps the plan equal to the JAX planner's
+                bst = np.asarray(blocks[0], np.int64)
+                bounds = np.sort(np.concatenate(
+                    [bounds, bst[~np.isin(bst, bounds)]]))
         starts = bounds[:-1].copy()
         ends = bounds[1:].copy()
         pl["bounds"] = (starts, ends)
