@@ -4,21 +4,26 @@
 
 Builds the CUDA kernels from webgraph_ans_torch/csrc (the token decode,
 decode_blocks, in token and aux mode, the merged-emit decode, decode_emit,
-and the lane-parallel rANS encode, encode_blocks), holds each bit-exact
+and the lane-parallel rANS encode, encode_blocks) and reports each
+instance's registers, shared memory, stack and spills (-Xptxas -v; a
+spill fails the run after the last phase), holds each kernel bit-exact
 against its plain PyTorch version (tolerance 0: every output is an
-integer) and times it with CUDA events. Then it runs the main paths on
-cnr-2000 (tests/data/cnr-2000: 325,557 nodes, 3,216,152 arcs), each
-compared bit for bit with the BVGraph input: the token path (the port's
-store, ANSBvGraph.load, TorchGraphDecoder.decode_tokens at 4096 lanes,
+integer) and times it with CUDA events beside its bound, counted from the
+bytes the function needs (the padded output layout beside it as
+layout_bytes). Then it runs the main paths on cnr-2000
+(tests/data/cnr-2000: 325,557 nodes, 3,216,152 arcs), each compared bit
+for bit with the BVGraph input: the token path (the port's store,
+ANSBvGraph.load, TorchGraphDecoder.decode_tokens at 4096 lanes,
 reconstruct), the merged-emit path
 (TorchGraphDecoder.decode_to_adjacency_device at 2048 lanes, through
-rebalance and refinement into the verified steady state, checked through
-to_dense_csr), and block-parallel compression (store with 512 encode
-blocks and the device model search, its artifact decoded back through
-both device paths and the sequential reader). Each phase prints one JSON
-line; any failure raises and exits non-zero. The line before the last
-lists the kernels; the last line is the device record. Exits 1 without
-printing a result when CUDA is not available.
+rebalance and refinement into the verified steady state, which replays
+one CUDA graph, checked through to_dense_csr; the steady call also
+without the graph, and at 4096 lanes), and block-parallel compression
+(store with 512 encode blocks and the device model search, its artifact
+decoded back through both device paths and the sequential reader). Each
+phase prints one JSON line; any failure raises and exits non-zero. The
+line before the last lists the kernels; the last line is the device
+record. Exits 1 without printing a result when CUDA is not available.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ CNR = os.path.join(REPO, "tests", "data", "cnr-2000", "cnr-2000")
 LANES = 4096
 WIDE_LANES = 32768
 EMIT_LANES = 2048
+WIDE_EMIT_LANES = 4096
 SMALL_LANES = 64
 TIMED_RUNS = 20
 
@@ -159,49 +165,64 @@ def _stream_words(dec, starts, ends, entry_ptrs) -> int:
 
 
 def decode_bound(dec, pl, cap, counts, aux: bool = False) -> dict:
-    """Least time for one decode_blocks call on these inputs: each input
-    read once, each output written once, and the integer operations this
-    run's tokens and stream words need (aux mode: its fields and one
-    summary step per node as well)."""
+    """Least time for one decode_blocks call on these inputs: read the
+    LUT once, the stream words the lanes consume and the lane records;
+    write each lane's steps (its tokens, and in aux mode one summary step
+    per node too: 4 B a step, 12 B in aux mode, and a nibble) and the lane
+    records; and the integer operations of this run's tokens and stream
+    words (aux mode: its fields and summary steps as well). The padded
+    output layout (every row up to cap) is printed beside it as
+    layout_bytes."""
     L = pl["states"].shape[0]
     R = dec.window + 1
     t = dec.tables
-    read = (t.lut.numel() * 4 + t.stream.numel() * 2
-            + L * (8 + 8 + 4 + 4 + 4 * R))
-    rows = 3 * cap if aux else cap
-    written = (rows + cap // 8) * L * 4 + L * 4 + L
     words = _stream_words(dec, pl["starts_np"], pl["ends_np"],
                           pl["ptrs"].cpu().numpy())
+    read = t.lut.numel() * 4 + words * 2 + L * (8 + 8 + 4 + 4 + 4 * R)
+    counts = counts.cpu().numpy().astype(np.int64)
+    steps = counts + ((pl["ends_np"] - pl["starts_np"]) if aux else 0)
+    row_bytes = 12 if aux else 4
+    written = (int(steps.sum()) * row_bytes
+               + int(((steps + 7) // 8).sum()) * 4 + L * (4 + 1))
+    rows = 3 * cap if aux else cap
+    layout = (rows + cap // 8) * L * 4 + L * (4 + 1)
     tokens = int(counts.sum())
     ops = OPS_PER_TOKEN * tokens + OPS_PER_WORD * words
     if aux:
-        ops += OPS_PER_AUX_STEP * (tokens + dec.num_nodes)
+        ops += OPS_PER_AUX_STEP * int(steps.sum())
     return {**_bound(read, written, ops), "tokens": tokens,
-            "stream_words": words}
+            "stream_words": words, "layout_bytes": read + layout}
 
 
 def emit_bound(dec, epl, cap, rows_used, tokens: int) -> dict:
-    """Least time for one decode_emit call: the LUT, the stream, the
-    register file and the pointers read once, val, xch, nib and the lane
-    records written once (every row up to cap, as the contract has it),
-    and the operations of this run's tokens (the token decode's count of
-    the same nodes: the verified plan has no halo), stream words and lane
-    steps. The ring is scratch, neither input nor output."""
+    """Least time for one decode_emit call: read the LUT once, the stream
+    words the lanes consume, the register file and the pointers; write
+    val, xch and a nibble for each row a lane uses (rows_used) and the
+    lane records; and the operations of this run's tokens (the token
+    decode's count of the same nodes: the verified plan has no halo),
+    stream words and lane steps. The ring is scratch, neither input nor
+    output. The padded layout (every row up to cap, as the contract
+    writes it) is printed beside it as layout_bytes."""
     if not np.array_equal(epl["hstarts_np"], epl["starts_np"]):
         raise SystemExit("emit_bound: the plan decodes a halo, which the "
                          "token count leaves out")
     L = epl["regs"].shape[1]
     t = dec.tables
-    read = (t.lut.numel() * 4 + t.stream.numel() * 2
-            + epl["regs"].numel() * 4 + L * 8)
-    written = (2 * cap + cap // 8) * L * 4 + L * (4 + 1 + 6 * 4)
-    steps = int(rows_used.sum())
     words = _stream_words(dec, epl["hstarts_np"], epl["ends_np"],
                           epl["ptrs"].cpu().numpy())
+    read = (t.lut.numel() * 4 + words * 2 + epl["regs"].numel() * 4
+            + L * 8)
+    rows = rows_used.cpu().numpy().astype(np.int64)
+    lane_records = L * (4 + 1 + 6 * 4)
+    written = (int(rows.sum()) * 8 + int(((rows + 7) // 8).sum()) * 4
+               + lane_records)
+    layout = (2 * cap + cap // 8) * L * 4 + lane_records
+    steps = int(rows.sum())
     ops = (OPS_PER_TOKEN * tokens + OPS_PER_WORD * words
            + OPS_PER_EMIT_STEP * steps)
     return {**_bound(read, written, ops), "tokens": tokens,
-            "stream_words": words, "steps": steps}
+            "stream_words": words, "steps": steps,
+            "layout_bytes": read + layout}
 
 
 def sampled_graph(graph_cls, res, step: int):
@@ -223,10 +244,18 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+PTXAS_FIELDS = (("registers", r"Used (\d+) registers"),
+                ("smem_bytes", r"(\d+) bytes smem"),
+                ("stack_bytes", r"(\d+) bytes stack frame"),
+                ("spill_stores", r"(\d+) bytes spill stores"),
+                ("spill_loads", r"(\d+) bytes spill loads"))
+
+
 def ptxas_report(log: str) -> dict:
-    """Registers and spills of each kernel instance in nvcc's -Xptxas -v
-    log, keyed by its template argument (emit_aux, or the window), or
-    "kernel" for a kernel that is no template."""
+    """Registers, static shared memory, stack and spills of each kernel
+    instance in nvcc's -Xptxas -v log, keyed by its template argument
+    (emit_aux, or the window), or "kernel" for a kernel that is no
+    template."""
     out, key = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(.*?)'", ln)
@@ -238,8 +267,12 @@ def ptxas_report(log: str) -> dict:
                 key = "aux" if t.group(2) == "1" else "token"
             else:
                 key = f"W{t.group(2)}"
-        elif key and ("registers" in ln or "spill" in ln):
-            out.setdefault(key, []).append(ln.strip())
+            out[key] = {}
+        elif key:
+            for field, pat in PTXAS_FIELDS:
+                f = re.search(pat, ln)
+                if f:
+                    out[key][field] = int(f.group(1))
     return out
 
 
@@ -322,11 +355,15 @@ def main() -> int:
         [(decode_cuda.SOURCE, decode_cuda.LIB_PATH),
          (emit_cuda.SOURCE, emit_cuda.LIB_PATH),
          (encode_cuda.SOURCE, encode_cuda.LIB_PATH)], force=True)
+    reports = {name: ptxas_report(info["log"]) for name, info in
+               zip(("decode_blocks", "decode_emit", "encode_blocks"), built)}
     emit("build", seconds=time.perf_counter() - t0, kernels=[
-        {"kernel": name, "seconds": info["seconds"],
-         "ptxas": ptxas_report(info["log"])}
-        for name, info in zip(("decode_blocks", "decode_emit",
-                               "encode_blocks"), built)])
+        {"kernel": name, "seconds": info["seconds"], "ptxas": reports[name]}
+        for name, info in zip(reports, built)])
+    # checked after the last phase, so that one run reports everything
+    spills = {f"{name}/{inst}": rep for name, insts in reports.items()
+              for inst, rep in insts.items()
+              if rep.get("spill_stores", 0) or rep.get("spill_loads", 0)}
 
     with tempfile.TemporaryDirectory() as tmp:
         # ---- 2. compress cnr-2000 with the port's store (host) ----
@@ -493,7 +530,9 @@ def main() -> int:
                     seen[c] += hit[c]
                 emit_small.append({"config": name, "T": T, "mark_deg": md,
                                    "cap": ecap, "all_done": bool(k[4].all()),
-                                   "codes": hit, **compare(k, p)})
+                                   "codes": hit, **compare(k, p),
+                                   **emit_cuda.launch_geometry(edec_s.window,
+                                                               T)})
         emit("emit_vs_plain_small", nodes=1000, lanes=SMALL_LANES,
              results=emit_small, codes_hit=seen)
         if not all(c["bit_equal"] and c["all_done"] for c in emit_small):
@@ -551,12 +590,17 @@ def main() -> int:
         decode_cuda.decode_blocks.launches = 0
         decode_cuda.decode_blocks.aux_launches = 0
         emit_cuda.decode_emit.launches = 0
-        steady = []
+        # the first steady call runs eagerly and captures the CUDA graph,
+        # the later ones replay it; every result is checked once all five
+        # calls have run, so a replay must not overwrite an earlier result
+        steady, results = [], []
         for _ in range(5):
             res3, sec = timed(
                 lambda: edec.decode_to_adjacency_device(EMIT_LANES))
             steady.append(sec)
-        steady_exact = exact_adjacency(res3)
+            results.append(res3)
+        steady_exact = all(exact_adjacency(r) for r in results)
+        del results
         steady_launches = {
             "decode_emit": emit_cuda.decode_emit.launches,
             "decode_blocks_aux": decode_cuda.decode_blocks.aux_launches,
@@ -564,9 +608,14 @@ def main() -> int:
         mc = epl["post_meta"]
         path_launches = {k: cold_launches[k] + steady_launches[k]
                          for k in cold_launches}
-        # the steady call on the device, and its post-pass alone
+        # the steady call on the device (the graph's replay and copies),
+        # the same call without the graph (its kernel and post-pass
+        # launched one by one), and the post-pass alone
         t_steady = cuda_ms(
             lambda: edec.decode_to_adjacency_device(EMIT_LANES), runs=10)
+        t_eager = cuda_ms(lambda: edec._steady(epl), runs=10)
+        eager_s = statistics.median(
+            [timed(lambda: edec._steady(epl))[1] for _ in range(5)])
         eargs = emit_args(edec, epl, epl["cap"])
         ek = emit_cuda.decode_emit(*eargs, T=epl["T"], mark_deg=True)
         t_post = cuda_ms(lambda: emit_post.post_steady(
@@ -578,7 +627,8 @@ def main() -> int:
              fixup_rounds=mc["rounds"], cold=cold,
              steady_seconds=steady_s, steady_ns_per_arc=steady_s * 1e9 / arcs,
              steady_runs=steady, steady_exact=steady_exact,
-             steady_device_ms=t_steady, post_steady_ms=t_post,
+             steady_device_ms=t_steady, steady_eager_seconds=eager_s,
+             steady_eager_device_ms=t_eager, post_steady_ms=t_post,
              host_planner_seconds=host_s, launches=cold_launches,
              steady_launches=steady_launches)
         if not (all(c["exact"] for c in cold) and steady_exact
@@ -587,11 +637,40 @@ def main() -> int:
                              "exact, or the plan never verified")
         if (path_launches["decode_emit"] < 1
                 or path_launches["decode_blocks_aux"] < 1
-                or steady_launches["decode_emit"] < 1
+                or steady_launches["decode_emit"] != len(steady)
                 or steady_launches["decode_blocks_aux"]
                 or steady_launches["decode_blocks"]):
             raise SystemExit(f"merged emit: unexpected launches "
                              f"{cold_launches} {steady_launches}")
+
+        # the same path at 4096 lanes: do more, shorter lanes shorten the
+        # longest one?
+        edec4 = TorchGraphDecoder(g)
+        cold4 = []
+        for _ in range(4):
+            res3, sec = timed(
+                lambda: edec4.decode_to_adjacency_device(WIDE_EMIT_LANES))
+            epl4 = edec4._plans[("emit", WIDE_EMIT_LANES)]
+            cold4.append({"seconds": sec, "exact": exact_adjacency(res3)})
+            if epl4.get("verified") and "fx_offs" in epl4.get("post_meta",
+                                                              {}):
+                break
+        steady4 = [timed(lambda: edec4.decode_to_adjacency_device(
+            WIDE_EMIT_LANES)) for _ in range(3)]
+        exact4 = all(exact_adjacency(r) for r, _ in steady4)
+        t_steady4 = cuda_ms(
+            lambda: edec4.decode_to_adjacency_device(WIDE_EMIT_LANES),
+            runs=10)
+        emit("emit_e2e_wide", graph="cnr-2000",
+             lanes=len(epl4["starts_np"]), T=epl4["T"], cap=epl4["cap"],
+             cold=cold4, verified=bool(epl4.get("verified")),
+             steady_seconds=statistics.median(t for _, t in steady4),
+             steady_device_ms=t_steady4, steady_exact=exact4)
+        if not (exact4 and all(c["exact"] for c in cold4)
+                and epl4.get("verified")):
+            raise SystemExit(f"merged emit at {WIDE_EMIT_LANES} lanes: not "
+                             "exact, or the plan never verified")
+        del edec4, steady4
 
         # ---- 10. merged-emit kernel vs plain on the verified cnr-2000
         # plan (the steady state's mark_deg mode), and its time ----
@@ -608,9 +687,10 @@ def main() -> int:
             *eargs, T=epl["T"], mark_deg=True))
         ebound = emit_bound(edec, epl, epl["cap"], ek[3],
                             int(kres[1].sum()))
+        geometry = emit_cuda.launch_geometry(edec.window, epl["T"])
         emit("emit_kernel_time", kernel="decode_emit", mark_deg=True,
              ms=t_emit, plain_ms=eplain_s * 1e3, library_ms=None,
-             rows_used_max=int(ek[3].max()), **ebound)
+             rows_used_max=int(ek[3].max()), **geometry, **ebound)
 
         # ---- 11. encode kernel vs plain on small inputs: the 2000-node
         # graph of phase 3 under each configuration, the edge graphs, and a
@@ -732,6 +812,9 @@ def main() -> int:
             raise SystemExit("block artifact: a decode path is not exact, "
                              "or the merged-emit plan never verified")
 
+    if spills:
+        raise SystemExit(f"kernel instances spill registers: {spills}")
+
     # ---- 15. the kernels line ----
     kernels = [{
         "name": "decode_blocks", "route": "cuda",
@@ -761,7 +844,7 @@ def main() -> int:
         "max_abs_err": cmp_emit["max_abs_err"], "ms": t_emit["median"],
         "plain_ms": eplain_s * 1e3, "bound_ms": ebound["bound_ms"],
         "bound_by": ebound["bound_by"], "library_ms": None,
-        "lanes": len(epl["starts_np"]),
+        "lanes": len(epl["starts_np"]), **geometry,
     }, {
         "name": "encode_blocks", "route": "cuda",
         "source": "webgraph_ans_torch/csrc/encode_blocks.cu",

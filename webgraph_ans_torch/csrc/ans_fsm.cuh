@@ -1,7 +1,9 @@
 // The rANS token step and the BvGraph grammar FSM shared by the decode
 // kernels (decode_blocks.cu, decode_emit.cu), so both decode the same
 // bits. One CUDA thread per lane; u32 semantics as in the plain PyTorch
-// versions (ops/decode_torch.py, ops/emit_torch.py).
+// versions (ops/decode_torch.py, ops/emit_torch.py). The codec
+// parameters are read from shared memory, and each token's LUT row is
+// requested one step ahead (lut_row).
 //
 // rANS step reference: src/ans/decoder.rs:58-100. Grammar executable
 // spec: native/src/bvgraph.hpp read_successors.
@@ -42,6 +44,17 @@ inline CodecParams codec_params(const long long* params) {
   return prm;
 }
 
+// The codec parameters of one block, copied into shared memory once:
+// every token reads them at the lane's component c, which differs across
+// a warp, so a read from the by-value kernel parameter would serialise
+// (or spill the struct to local memory). Nine entries of one field lie in
+// nine banks, so a warp's reads of one field never conflict.
+__device__ __forceinline__ void stage_params(const CodecParams& prm,
+                                             CodecParams& sp) {
+  if (threadIdx.x == 0) sp = prm;
+  __syncthreads();
+}
+
 // 16-bit renormalisation: reads the word at ptr-1, clamped to the stream.
 __device__ __forceinline__ void refill(uint32_t& st, long long& ptr,
                                        const uint16_t* __restrict__ stream,
@@ -55,16 +68,24 @@ __device__ __forceinline__ void refill(uint32_t& st, long long& ptr,
   }
 }
 
-// One rANS decode step of component c: LUT slot, u32 state update,
-// refills, quasi-unfold. Updates state and ptr; returns the value.
-__device__ __forceinline__ uint32_t ans_step(
-    const CodecParams& prm, const uint2* __restrict__ lut,
-    const uint16_t* __restrict__ stream, long long last_word, int c,
-    uint32_t& state, long long& ptr) {
-  const uint32_t slot = state & prm.mask[c];
-  uint32_t idx = prm.offset[c] + slot;
+// The LUT row of the next token of component c (0..8) at this state. The
+// kernels request it as soon as the state and the phase of the next token
+// are known, so the rest of a step runs while the load is in flight.
+__device__ __forceinline__ uint2 lut_row(const CodecParams& prm,
+                                         const uint2* __restrict__ lut, int c,
+                                         uint32_t state) {
+  uint32_t idx = prm.offset[c] + (state & prm.mask[c]);
   if (idx >= prm.slots) idx = prm.slots - 1;
-  const uint2 e = __ldg(lut + idx);
+  return __ldg(lut + idx);
+}
+
+// One rANS decode step of component c from its LUT row e (lut_row at this
+// state): u32 state update, refills, quasi-unfold. prm lies in shared
+// memory (stage_params). Updates state and ptr; returns the value.
+__device__ __forceinline__ uint32_t ans_step(
+    const CodecParams& prm, uint2 e, const uint16_t* __restrict__ stream,
+    long long last_word, int c, uint32_t& state, long long& ptr) {
+  const uint32_t slot = state & prm.mask[c];
   const uint32_t freq = e.x & 0xFFFFu, cumul = e.x >> 16;
   const uint32_t sym = e.y & 0xFFFFu;
   const uint32_t folds = min(e.y >> 16, prm.max_folds);

@@ -16,15 +16,24 @@
 // downwards, and the LUT ([slots, 2] u32, 263 KB on cnr-2000, over a
 // block's shared memory) is read through the read-only cache.
 //
-// What bounds it on an H100: bytes. The least traffic is the stream read
-// once (2 B/word), the LUT once and the output written once (4 B per
-// token row per lane, 12 B in aux mode, plus the nibble rows); the integer
-// work is a few tens of operations per token. What limits this simple
-// version instead is latency: each token's LUT slot depends on the
-// previous token's state (a chain of dependent global loads per lane), and
-// the lanes of a warp sit in different grammar phases, so the warp
-// diverges at the FSM switch. Warp-per-lane-group layouts, a shared-memory
-// LUT for small models and more lanes per SM are later work.
+// What bounds it on an H100. Its least time is set by bytes (the stream
+// words the lanes consume and the LUT read once, each lane's steps and
+// nibbles written once: ~10 MB in token mode on cnr-2000, ~0.003 ms),
+// but each token's LUT slot depends on the previous token's state, so a
+// lane is one chain of dependent steps and the longest lane sets the
+// time. What limits it is the instructions a warp issues per step: the
+// lanes of a warp sit in different grammar phases, and a warp runs the
+// union of their paths through the FSM switch, the fold loop and the
+// refills. On an H100 (PERF.md) fewer lanes per warp ran faster all the
+// way down to one (token mode at 4096 lanes: 1.18 ms at 32 lanes a
+// block, 0.73 at 8, 0.60-0.66 at 1). So a block is one thread:
+// a warp follows one lane's path alone, and the lanes spread over every
+// SM, up to 32 one-warp blocks an SM (4,224 lanes at once on 132 SMs),
+// enough warps for each sub-partition to hide the others' latency. The
+// codec parameters are read from shared memory at the lane's component,
+// each token's LUT row is requested a step ahead (lut_row), and the
+// window's outdegree ring lives in shared memory (17 ints a lane), not in
+// a runtime-indexed local array.
 
 #include "ans_fsm.cuh"
 
@@ -33,18 +42,19 @@ namespace {
 using namespace wgt;
 
 constexpr int kMaxRing = kMaxWindow + 1;
-constexpr int kThreads = 128;
+constexpr int kThreads = 1;
 
-// Outdegree ring with a runtime window (slot node % R).
+// Outdegree ring with a runtime window (slot node % R), one column of the
+// block's shared ring: entry k of this lane at a[k * kThreads].
 struct RuntimeRing {
   int* a;
   int R;
   int xmod;
-  __device__ void store(int v) { a[xmod] = v; }
+  __device__ void store(int v) { a[xmod * kThreads] = v; }
   __device__ int ref(int v) const {
     long long r = (static_cast<long long>(xmod) - v) % R;
     if (r < 0) r += R;
-    return a[r];
+    return a[r * kThreads];
   }
 };
 
@@ -57,6 +67,9 @@ __global__ void __launch_bounds__(kThreads) decode_blocks_kernel(
     const int* __restrict__ ring_seed, int L, int window, int min_interval,
     int cap, uint32_t* __restrict__ out, int* __restrict__ counts,
     uint8_t* __restrict__ ok) {
+  __shared__ CodecParams sp;
+  __shared__ int ring_s[kMaxRing * kThreads];
+  stage_params(prm, sp);
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= L) return;
   const int R = window + 1;
@@ -65,9 +78,11 @@ __global__ void __launch_bounds__(kThreads) decode_blocks_kernel(
   int x = starts[l];
   const int end = ends[l];
   int phase = x < end ? P_OUT : P_DONE;
-  int ring_a[kMaxRing];
+  uint2 e = make_uint2(0u, 0u);   // the LUT row of the next token
+  if (phase < P_DONE) e = lut_row(sp, lut, phase, state);
+  int* ring_a = ring_s + threadIdx.x;
   for (int k = 0; k < R; ++k)
-    ring_a[k] = ring_seed[static_cast<size_t>(l) * R + k];
+    ring_a[k * kThreads] = ring_seed[static_cast<size_t>(l) * R + k];
   RuntimeRing ring{ring_a, R, x % R};
   Grammar g;
   // aux registers: running residual, interval element count, interval
@@ -90,7 +105,7 @@ __global__ void __launch_bounds__(kThreads) decode_blocks_kernel(
       phase = x >= end ? P_DONE : P_OUT;
     } else {
       const int c = phase;   // 0..8: the component of this token
-      value = ans_step(prm, lut, stream, last_word, c, state, ptr);
+      value = ans_step(sp, e, stream, last_word, c, state, ptr);
       const int v = static_cast<int>(value);
       nib = static_cast<uint32_t>(c);
       ++outn;
@@ -151,6 +166,7 @@ __global__ void __launch_bounds__(kThreads) decode_blocks_kernel(
       }
       if (nxt != kKeep) phase = nxt;
     }
+    if (phase < P_DONE) e = lut_row(sp, lut, phase, state);
 
     // step-major output; nibbles flushed every 8 steps
     out[static_cast<size_t>(s) * Ls + l] = value;

@@ -10,31 +10,38 @@
 // (QC = 16), interval runs (QI = 16), residuals (QR = 12) and node metas
 // (QN = 4); an emission side merges the queue heads by value and writes
 // one final sorted successor per step. Copy values are read back from a
-// T-row ring of the lane's own emitted rows: scratch [T, L] int32 in
-// device memory, row = global step & (T-1), so neighbouring lanes touch
-// neighbouring words and the whole ring (4.2 MB at T = 512, 2048 lanes)
-// stays in the 50 MB L2. Nodes the lane cannot resolve are written
-// grouped (row codes 3, 7, 8, 9 with placeholders) for the post-pass.
+// T-row ring of the lane's own emitted rows (row = global step & (T-1)).
+// Nodes the lane cannot resolve are written grouped (row codes 3, 7, 8, 9
+// with placeholders) for the post-pass.
 //
 // The TPU kernel keeps its 169-196 registers per lane in VMEM rows, reads
 // the stream from a per-lane slab and builds every dynamic access from
-// where-trees. Here the window rings and the queues are arrays with
-// compile-time indices (the kernel is a template on the window), the
-// one-hot push and the shift-down pop are fully unrolled predicated moves,
-// and the stream is read at absolute 64-bit pointers through the
-// read-only cache, as decode_blocks does.
+// where-trees: one-hot pushes and shift-down pops over every queue slot.
 //
-// What bounds it on an H100: integer operations (a few hundred per step:
-// the unrolled queue pushes and shifts are one compare and one select per
-// slot and field) above bytes (the stream and the LUT read once, val, xch
-// and nib written once: 8.5 B per step per lane), and, far above both,
-// latency. Each step of a lane depends on the previous one (the rANS state
-// chain plus the queues), each token's LUT and stream reads are dependent
-// global loads, and the lanes of a warp diverge across grammar phases.
-// The whole register file stays in registers (nvcc 12.8: 214 at window 7,
-// 240 at window 16, no spills), so an SM holds few warps; 32 threads a
-// block spread 2048 lanes over 64 SMs. Lane groups per warp, the ring in
-// shared memory and asynchronous stream prefetch are later work.
+// What bounds it on an H100. Its least time is set by bytes (the stream
+// and the LUT read once, val, xch and a nibble written for each row a
+// lane uses: ~34 MB on cnr-2000, ~0.01 ms), but every step of a lane
+// depends on the previous one (the rANS state chain and the queues), and
+// a step is a long instruction path that depends on the lane's grammar
+// phase and queue state, so a warp runs the union of its lanes' paths and
+// the lanes' steps, not bytes, set the time. What the design
+// does about it:
+// - a block holds kLanesPerBlock = 2 lanes (one warp): on an H100, fewer
+//   lanes a warp ran faster (2048 lanes on cnr-2000: 5.8 ms at 32 a
+//   block, 3.2-3.6 at 4, 2.7-2.8 at 2 or 1; PERF.md), and the 1024 warps
+//   spread over every SM;
+// - each lane's state lives in its own region of the block's dynamic
+//   shared memory: the queues, the three window rings and the T-row ring
+//   (T + 100 + 3(W+1) ints: 2,544 B at T = 512, W = 7), so no per-slot
+//   select and no device-memory round trip is left on the step;
+// - each queue is a circular buffer with O(1) push and pop that keeps,
+//   slot for slot, what the reference's shift-down array keeps (Queue);
+// - the codec parameters come from shared memory, and each token's LUT
+//   row is requested a step ahead, while the emission substep runs
+//   (ans_fsm.cuh).
+// The launcher halves the lanes a block when T's ring would not fit the
+// card's per-block shared memory, and refuses a T for which even one lane
+// does not fit.
 
 #include "ans_fsm.cuh"
 
@@ -45,9 +52,11 @@ using namespace wgt;
 constexpr int QC = 16, QI = 16, QR = 12, QN = 4;
 constexpr int C_EL = 0, C_FIRST = 1, C_HOLE = 2, C_REFINFO = 3, C_PLACE = 4,
               C_EMPTY = 5, C_DONE = 0xF;
-constexpr int kThreads = 32;
+constexpr int kLanesPerBlock = 2;
 constexpr int kUnroll = 8;
 constexpr int NFIX = 45;
+// shared-memory ints per lane besides the T-row ring: the queues' fields
+constexpr int kQueueInts = 2 * QC + 2 * QI + 2 * QR + 3 * QN;
 
 // register rows of the [nreg, L] file (emit_torch._layout)
 enum {
@@ -59,24 +68,6 @@ enum {
   E_LSTART, E_RSTART, E_MARKROW, E_MDIRTY,
   N_QC, N_QI, N_QR, N_QN
 };
-
-// R-entry register ring: reads and writes at a runtime slot, unrolled
-// over the compile-time entries so the ring stays in registers.
-template <int R>
-__device__ __forceinline__ int ring_get(const int (&a)[R], int idx) {
-  int v = a[0];
-#pragma unroll
-  for (int k = 1; k < R; ++k) v = idx == k ? a[k] : v;
-  return v;
-}
-
-template <int R>
-__device__ __forceinline__ void ring_put(int (&a)[R], int idx, int v,
-                                         bool on) {
-#pragma unroll
-  for (int k = 0; k < R; ++k)
-    if (on && idx == k) a[k] = v;
-}
 
 // Ring slot `back` entries behind `mod`, clipped to [0, R) as the TPU
 // kernel clips it (emit_pallas.py:208-211, :343-345). Written with two ifs:
@@ -92,75 +83,131 @@ __device__ __forceinline__ int ring_slot(int mod, int back) {
   return s;
 }
 
-// Outdegree ring of the decode side.
+// Outdegree ring of the decode side, in the lane's shared memory.
 template <int R>
 struct EmitRing {
-  int (&a)[R];
+  int* a;
   int xmod;
-  __device__ void store(int v) { ring_put<R>(a, xmod, v, true); }
-  __device__ int ref(int v) const {
-    return ring_get<R>(a, ring_slot<R>(xmod, v));
+  __device__ void store(int v) { a[xmod] = v; }
+  __device__ int ref(int v) const { return a[ring_slot<R>(xmod, v)]; }
+};
+
+// A bounded queue of F int fields (F = 2 or 3) in the lane's shared
+// memory: field f of physical slot s at a[f * Q + s], logical slot k at
+// physical slot (h + k) mod Q. It holds, slot for slot,
+// what the reference's shift-down array holds (emit_torch._Queue), stale
+// slots included, at O(1) a push or pop:
+// - push at logical slot n, unless the queue is full: a push at a full
+//   queue writes nothing and still counts;
+// - pop advances h after copying the old last logical slot (physical
+//   h - 1) into the vacated physical slot h, which becomes the new last
+//   logical slot: the shift-down pop leaves the last entry in place.
+// So slot 0 of an empty queue reads what the reference's does (val on a
+// row that emits nothing, xch in mark_deg mode, the fill rows).
+template <int Q, int F>
+struct Queue {
+  int* a;
+  int h, n;
+  __device__ __forceinline__ int& at(int f, int s) const {
+    return a[f * Q + s];
+  }
+  __device__ __forceinline__ int head(int f) const { return at(f, h); }
+  __device__ __forceinline__ void push(bool on, int v0, int v1, int v2 = 0) {
+    if (on) {
+      if (n < Q) {
+        int s = h + n;
+        if (s >= Q) s -= Q;
+        at(0, s) = v0;
+        at(1, s) = v1;
+        if (F > 2) at(2, s) = v2;
+      }
+      ++n;
+    }
+  }
+  __device__ __forceinline__ void pop(bool on) {
+    if (on) {
+      int t = h - 1;
+      if (t < 0) t += Q;
+#pragma unroll
+      for (int f = 0; f < F; ++f) at(f, h) = at(f, t);
+      if (++h == Q) h = 0;
+      --n;
+    }
   }
 };
 
-// One-hot push of (a, b[, c]) at position cnt; a push at a full queue
-// writes nothing and still counts.
-template <int Q>
-__device__ __forceinline__ void qpush(int (&qa)[Q], int (&qb)[Q], int& cnt,
-                                      bool on, int a, int b) {
-#pragma unroll
-  for (int k = 0; k < Q; ++k)
-    if (on && cnt == k) {
-      qa[k] = a;
-      qb[k] = b;
-    }
-  cnt += on ? 1 : 0;
-}
-
-template <int Q>
-__device__ __forceinline__ void qpush3(int (&qa)[Q], int (&qb)[Q],
-                                       int (&qc)[Q], int& cnt, bool on,
-                                       int a, int b, int c) {
-#pragma unroll
-  for (int k = 0; k < Q; ++k)
-    if (on && cnt == k) {
-      qa[k] = a;
-      qb[k] = b;
-      qc[k] = c;
-    }
-  cnt += on ? 1 : 0;
-}
-
-// Shift-down pop of the front entry (the last entry keeps its value).
-template <int Q>
-__device__ __forceinline__ void qshift(int (&q)[Q], bool on) {
-  if (on) {
-#pragma unroll
-    for (int k = 0; k < Q - 1; ++k) q[k] = q[k + 1];
-  }
+// Dynamic shared memory: one region per lane of the block, holding the
+// queues, the three window rings (outdegree, emission base, emission dirty
+// flag) and the T-row ring, in that order, so every offset but the ring
+// row's is a constant.
+__host__ __device__ inline int smem_ints_per_lane(int window, int T) {
+  return T + kQueueInts + 3 * (window + 1);
 }
 
 template <int W>
-__global__ void __launch_bounds__(kThreads) decode_emit_kernel(
+__global__ void __launch_bounds__(kLanesPerBlock) decode_emit_kernel(
     CodecParams prm, const uint2* __restrict__ lut,
     const uint16_t* __restrict__ stream, long long last_word,
-    const int* __restrict__ regs, const long long* __restrict__ ptrs, int L,
-    int min_interval, int cap, int T, int mark_deg, int* __restrict__ val,
-    int* __restrict__ xch, uint32_t* __restrict__ nib,
-    int* __restrict__ rows_used, uint8_t* __restrict__ ok,
-    int* __restrict__ diag, int* __restrict__ ring) {
+    const int* __restrict__ regs,
+    const long long* __restrict__ ptrs, int L, int min_interval, int cap,
+    int T, int mark_deg, int* __restrict__ val, int* __restrict__ xch,
+    uint32_t* __restrict__ nib, int* __restrict__ rows_used,
+    uint8_t* __restrict__ ok, int* __restrict__ diag) {
   constexpr int R = W + 1;
   constexpr int DEG = NFIX, BASE = DEG + R, DIRT = BASE + R;
   constexpr int QC0 = DIRT + R, QI0 = QC0 + 2 * QC, QR0 = QI0 + 2 * QI;
   constexpr int QN0 = QR0 + 2 * QR;
+  extern __shared__ int smem[];
+  __shared__ CodecParams sp;
+  stage_params(prm, sp);
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= L) return;
   const size_t Ls = static_cast<size_t>(L);
   auto reg = [&](int row) { return regs[static_cast<size_t>(row) * Ls + l]; };
 
+  // this lane's region: the queues, the window rings, the ring's T rows
+  int* const lane = smem + threadIdx.x * smem_ints_per_lane(W, T);
+  Queue<QC, 2> qc{lane, 0, reg(N_QC)};
+  Queue<QI, 2> qi{lane + 2 * QC, 0, reg(N_QI)};
+  Queue<QR, 2> qr{lane + 2 * QC + 2 * QI, 0, reg(N_QR)};
+  Queue<QN, 3> qn{lane + 2 * QC + 2 * QI + 2 * QR, 0, reg(N_QN)};
+  int* const deg = lane + kQueueInts;
+  int* const base = deg + R;
+  int* const dirt = base + R;
+  int* const ring = dirt + R;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    deg[k] = reg(DEG + k);
+    base[k] = reg(BASE + k);
+    dirt[k] = reg(DIRT + k);
+  }
+#pragma unroll
+  for (int k = 0; k < QC; ++k) {
+    qc.at(0, k) = reg(QC0 + 2 * k);
+    qc.at(1, k) = reg(QC0 + 2 * k + 1);
+  }
+#pragma unroll
+  for (int k = 0; k < QI; ++k) {
+    qi.at(0, k) = reg(QI0 + 2 * k);
+    qi.at(1, k) = reg(QI0 + 2 * k + 1);
+  }
+#pragma unroll
+  for (int k = 0; k < QR; ++k) {
+    qr.at(0, k) = reg(QR0 + 2 * k);
+    qr.at(1, k) = reg(QR0 + 2 * k + 1);
+  }
+#pragma unroll
+  for (int k = 0; k < QN; ++k) {
+    qn.at(0, k) = reg(QN0 + 3 * k);
+    qn.at(1, k) = reg(QN0 + 3 * k + 1);
+    qn.at(2, k) = reg(QN0 + 3 * k + 2);
+  }
+
   uint32_t state = static_cast<uint32_t>(reg(D_STATE));
   long long ptr = ptrs[l];
   int left = reg(D_LEFT), phase = reg(D_PHASE);
+  uint2 e = make_uint2(0u, 0u);   // the LUT row of the next token
+  if (phase < P_DONE) e = lut_row(sp, lut, phase, state);
   Grammar g;
   g.d = reg(D_D); g.bc = reg(D_BC); g.brem = reg(D_BREM);
   g.bidx = reg(D_BIDX); g.bsum = reg(D_BSUM); g.cpy = reg(D_CPY);
@@ -177,37 +224,6 @@ __global__ void __launch_bounds__(kThreads) decode_emit_kernel(
   int e_donerow = reg(E_DONEROW);
   const int e_lstart = reg(E_LSTART), e_rstart = reg(E_RSTART);
   int e_markrow = reg(E_MARKROW), e_mdirty = reg(E_MDIRTY);
-  int qc_n = reg(N_QC), qi_n = reg(N_QI), qr_n = reg(N_QR), qn_n = reg(N_QN);
-  int deg[R], base[R], dirt[R];
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-    deg[k] = reg(DEG + k);
-    base[k] = reg(BASE + k);
-    dirt[k] = reg(DIRT + k);
-  }
-  int qca[QC], qcb[QC], qia[QI], qib[QI], qra[QR], qrb[QR];
-  int qna[QN], qnb[QN], qnc[QN];
-#pragma unroll
-  for (int k = 0; k < QC; ++k) {
-    qca[k] = reg(QC0 + 2 * k);
-    qcb[k] = reg(QC0 + 2 * k + 1);
-  }
-#pragma unroll
-  for (int k = 0; k < QI; ++k) {
-    qia[k] = reg(QI0 + 2 * k);
-    qib[k] = reg(QI0 + 2 * k + 1);
-  }
-#pragma unroll
-  for (int k = 0; k < QR; ++k) {
-    qra[k] = reg(QR0 + 2 * k);
-    qrb[k] = reg(QR0 + 2 * k + 1);
-  }
-#pragma unroll
-  for (int k = 0; k < QN; ++k) {
-    qna[k] = reg(QN0 + 3 * k);
-    qnb[k] = reg(QN0 + 3 * k + 1);
-    qnc[k] = reg(QN0 + 3 * k + 2);
-  }
 
   uint32_t cpk = 0xFFFFFFFFu;
   const int tmask = T - 1;
@@ -216,37 +232,33 @@ __global__ void __launch_bounds__(kThreads) decode_emit_kernel(
     const int p = phase;
     const bool active = p != P_DONE;
     // done at step start: the lane is frozen from here on
-    if (!active && e_active == 0 && qn_n == 0) break;
+    if (!active && e_active == 0 && qn.n == 0) break;
 
     // ---------------- decode stall / early meta ----------------
     const bool meta_unsent = metasent == 0;
-    const bool qfull_c = (p == P_BC || p == P_BLK) && qc_n > QC - 2;
-    const bool qfull_i = p == P_IL && qi_n > QI - 1;
-    const bool qfull_r = (p == P_FR || p == P_RES) && qr_n > QR - 1;
+    const bool qfull_c = (p == P_BC || p == P_BLK) && qc.n > QC - 2;
+    const bool qfull_i = p == P_IL && qi.n > QI - 1;
+    const bool qfull_r = (p == P_FR || p == P_RES) && qr.n > QR - 1;
     const bool meta_phase = p == P_OUT || p == P_BC || p == P_BLK ||
                             p == P_IL || p == P_FR;
-    const bool qfull_n = meta_phase && meta_unsent && qn_n > QN - 1;
+    const bool qfull_n = meta_phase && meta_unsent && qn.n > QN - 1;
     const bool stall = active && (qfull_c || qfull_i || qfull_r || qfull_n);
     // early dirty meta only on true self-deadlock (emission idle)
     const bool early = active && meta_unsent && (qfull_c || qfull_i) &&
-                       e_active == 0 && qn_n == 0;
+                       e_active == 0 && qn.n == 0;
     const int tagd = x & 0xFF;
-    qpush3<QN>(qna, qnb, qnc, qn_n, early, g.d,
-               (refreg << 10) | (1 << 9) | tagd, 0);
+    qn.push(early, g.d, (refreg << 10) | (1 << 9) | tagd, 0);
     if (early) metasent = 1;
 
-    const bool dec_active = active && !stall;
     // ---------------- rANS step + grammar FSM ----------------
-    int v = 0;
-    int nxt = kKeep;
-    if (dec_active) {
+    if (active && !stall) {
       const int c = p;
-      v = static_cast<int>(ans_step(prm, lut, stream, last_word, c, state,
-                                    ptr));
+      const int v = static_cast<int>(
+          ans_step(sp, e, stream, last_word, c, state, ptr));
       const int bsum_pre = g.bsum;
       EmitRing<R> dring{deg, xmod};
       const GrammarStep r = grammar_step(g, c, v, dring, W, min_interval);
-      nxt = r.nxt;
+      int nxt = r.nxt;
       const int n2i = (v >> 1) ^ -(v & 1);
       switch (c) {
         case P_OUT:
@@ -257,14 +269,12 @@ __global__ void __launch_bounds__(kThreads) decode_emit_kernel(
           break;
         case P_BC:
           // whole reference list copied (bc == 0)
-          qpush<QC>(qca, qcb, qc_n, v == 0 && g.refd > 0, 0,
-                    g.refd | (tagd << 20));
+          qc.push(v == 0 && g.refd > 0, 0, g.refd | (tagd << 20));
           break;
         case P_BLK:
-          qpush<QC>(qca, qcb, qc_n, r.blk_copy && r.b > 0, bsum_pre,
-                    r.b | (tagd << 20));
-          qpush<QC>(qca, qcb, qc_n, r.blocks_done && r.tail_len > 0, g.bsum,
-                    r.tail_len | (tagd << 20));
+          qc.push(r.blk_copy && r.b > 0, bsum_pre, r.b | (tagd << 20));
+          qc.push(r.blocks_done && r.tail_len > 0, g.bsum,
+                  r.tail_len | (tagd << 20));
           break;
         case P_IC:
           fiv = 1;
@@ -276,22 +286,20 @@ __global__ void __launch_bounds__(kThreads) decode_emit_kernel(
         case P_IL: {
           const int ilen = v + min_interval;
           ivl += ilen;
-          qpush<QI>(qia, qib, qi_n, ilen > 0, ivl - ilen,
-                    ilen | (tagd << 20));
+          qi.push(ilen > 0, ivl - ilen, ilen | (tagd << 20));
           break;
         }
         default: {   // P_FR, P_RES
           const int resval = c == P_FR ? x + n2i : prevres + v + 1;
           prevres = resval;
-          qpush<QR>(qra, qrb, qr_n, true, resval, tagd);
+          qr.push(true, resval, tagd);
           break;
         }
       }
       const bool node_done = nxt == kNodeDone;
       // meta: first residual, or node end without residuals
       const bool push_meta = (c == P_FR || node_done) && metasent == 0;
-      qpush3<QN>(qna, qnb, qnc, qn_n, push_meta, g.d, (refreg << 10) | tagd,
-                 g.copied);
+      qn.push(push_meta, g.d, (refreg << 10) | tagd, g.copied);
       if (push_meta) metasent = 1;
       if (node_done) {
         metasent = 0;
@@ -301,6 +309,8 @@ __global__ void __launch_bounds__(kThreads) decode_emit_kernel(
         nxt = left <= 0 ? P_DONE : P_OUT;
       }
       if (nxt != kKeep) phase = nxt;
+      // the next token's LUT row loads while the emission substep runs
+      if (phase != P_DONE) e = lut_row(sp, lut, phase, state);
     }
 
     // =================== emission substep ===================
@@ -309,37 +319,32 @@ __global__ void __launch_bounds__(kThreads) decode_emit_kernel(
     const int tagx = ex & 0xFF;
 
     // ---- pop the next node meta ----
-    const bool can_pop = !em_active && qn_n > 0;
-    const int md = qna[0], mp = qnb[0], mncop = qnc[0];
-    const int mref = mp >> 10;
-    const int mdirty0 = (mp >> 9) & 1;
-    const bool hasref = mref > 0;
-    const int psel = ring_slot<R>(exmod, W > 0 ? mref % R : 0);
-    const int pbase = ring_get<R>(base, psel);
-    const int ptaint = ring_get<R>(dirt, psel);
-    const bool crossl = hasref && ex - mref < e_lstart;
-    const bool qc_match_pop = qc_n > 0 && (qcb[0] >> 20) == tagx;
-    const int firstsrc = pbase + qca[0];
-    // ring-overflow bound (emit_pallas.py:354-358)
-    const bool tover = hasref && qc_match_pop &&
-                       (row + md - mncop - firstsrc) > (T - kUnroll);
-    const bool dirty = mdirty0 != 0 || (hasref && (ptaint != 0 || crossl)) ||
-                       tover;
-    const int dcause = mdirty0 != 0 ? C_REFINFO
-                       : (hasref && crossl) ? 7
-                       : (hasref && ptaint != 0) ? 8 : 9;
-    const bool empty = md == 0;
-    qshift<QN>(qna, can_pop);
-    qshift<QN>(qnb, can_pop);
-    qshift<QN>(qnc, can_pop);
-    qn_n -= can_pop ? 1 : 0;
-
-    const bool popped_dirty = can_pop && !empty && dirty;
-    const bool popped_empty = can_pop && empty;
-    ring_put<R>(base, exmod, row + (dirty ? 1 : 0), can_pop);
-    ring_put<R>(dirt, exmod, dirty ? 1 : 0, can_pop);
-    const bool em_active2 = (can_pop && !empty) || em_active;
+    const bool can_pop = !em_active && qn.n > 0;
+    const int md = qn.head(0);   // xch of every row in mark_deg mode
+    bool dirty = false, empty = false;
+    int dcause = 0;
     if (can_pop) {
+      const int mp = qn.head(1), mncop = qn.head(2);
+      const int mref = mp >> 10;
+      const int mdirty0 = (mp >> 9) & 1;
+      const bool hasref = mref > 0;
+      const int psel = ring_slot<R>(exmod, W > 0 ? mref % R : 0);
+      const int pbase = base[psel];
+      const int ptaint = dirt[psel];
+      const bool crossl = hasref && ex - mref < e_lstart;
+      const bool qc_match_pop = qc.n > 0 && (qc.head(1) >> 20) == tagx;
+      const int firstsrc = pbase + qc.head(0);
+      // ring-overflow bound (emit_pallas.py:354-358)
+      const bool tover = hasref && qc_match_pop &&
+                         (row + md - mncop - firstsrc) > (T - kUnroll);
+      dirty = mdirty0 != 0 || (hasref && (ptaint != 0 || crossl)) || tover;
+      dcause = mdirty0 != 0 ? C_REFINFO
+               : (hasref && crossl) ? 7
+               : (hasref && ptaint != 0) ? 8 : 9;
+      empty = md == 0;
+      qn.pop(true);
+      base[exmod] = row + (dirty ? 1 : 0);
+      dirt[exmod] = dirty ? 1 : 0;
       e_d = md;
       e_ref = mref;
       e_dirty = dirty ? 1 : 0;
@@ -349,6 +354,9 @@ __global__ void __launch_bounds__(kThreads) decode_emit_kernel(
       cc_left = 0;
       ci_left = 0;
     }
+    const bool popped_dirty = can_pop && !empty && dirty;
+    const bool popped_empty = can_pop && empty;
+    const bool em_active2 = (can_pop && !empty) || em_active;
     int ex2 = ex, exmod2 = exmod;
     if (popped_empty) {
       ++ex2;
@@ -357,44 +365,39 @@ __global__ void __launch_bounds__(kThreads) decode_emit_kernel(
 
     // ---- run activation (not on the refinfo / empty step) ----
     const bool emit_now = em_active2 && !popped_dirty && !popped_empty;
-    const int tagx2 = can_pop ? (ex & 0xFF) : tagx;
-    const bool act_c = emit_now && cc_left == 0 && qc_n > 0 &&
-                       (qcb[0] >> 20) == tagx2;
+    const bool act_c = emit_now && cc_left == 0 && qc.n > 0 &&
+                       (qc.head(1) >> 20) == tagx;
     if (act_c) {
-      cc_j = qca[0];
-      cc_left = qcb[0] & 0xFFFFF;
-      cc_src = e_pbase + qca[0];
+      cc_j = qc.head(0);
+      cc_left = qc.head(1) & 0xFFFFF;
+      cc_src = e_pbase + cc_j;
     }
-    qshift<QC>(qca, act_c);
-    qshift<QC>(qcb, act_c);
-    qc_n -= act_c ? 1 : 0;
-    const bool act_i = emit_now && ci_left == 0 && qi_n > 0 &&
-                       (qib[0] >> 20) == tagx2;
+    qc.pop(act_c);
+    const bool act_i = emit_now && ci_left == 0 && qi.n > 0 &&
+                       (qi.head(1) >> 20) == tagx;
     if (act_i) {
-      ci_val = qia[0];
-      ci_left = qib[0] & 0xFFFFF;
+      ci_val = qi.head(0);
+      ci_left = qi.head(1) & 0xFFFFF;
     }
-    qshift<QI>(qia, act_i);
-    qshift<QI>(qib, act_i);
-    qi_n -= act_i ? 1 : 0;
+    qi.pop(act_i);
 
     // ---- group-done signals (decode position checks) ----
     const bool dec_past = x > ex2;
     const bool dec_past_blk = dec_past || (x == ex2 && phase >= P_IC);
     const bool dec_past_iv = dec_past || (x == ex2 && phase >= P_FR);
-    const bool qc_match2 = qc_n > 0 && (qcb[0] >> 20) == tagx2;
-    const bool qi_match2 = qi_n > 0 && (qib[0] >> 20) == tagx2;
+    const bool qc_match2 = qc.n > 0 && (qc.head(1) >> 20) == tagx;
+    const bool qi_match2 = qi.n > 0 && (qi.head(1) >> 20) == tagx;
     const bool cop_av = cc_left > 0;
     const bool cop_done = !cop_av && !qc_match2 && dec_past_blk;
     const bool iv_av = ci_left > 0;
     const bool iv_done = !iv_av && !qi_match2 && dec_past_iv;
-    const bool res_av = qr_n > 0 && qrb[0] == tagx2;
+    const bool res_av = qr.n > 0 && qr.head(1) == tagx;
     const bool res_done = !res_av && dec_past;
 
     // ---- heads and merge ----
-    const int hc = ring[static_cast<size_t>(cc_src & tmask) * Ls + l];
+    const int hc = ring[cc_src & tmask];
     const int hi = ci_val;
-    const int hr = qra[0];
+    const int hr = qr.head(0);
     const bool clean = e_dirty == 0;
     const int BIG = 0x7FFFFFFF;
     const int hc_k = emit_now && cop_av && clean ? hc : BIG;
@@ -423,9 +426,7 @@ __global__ void __launch_bounds__(kThreads) decode_emit_kernel(
       ++ci_val;
       --ci_left;
     }
-    qshift<QR>(qra, emit_r);
-    qshift<QR>(qrb, emit_r);
-    qr_n -= emit_r ? 1 : 0;
+    qr.pop(emit_r);
 
     e_emitted += emitted ? 1 : 0;
     const bool node_fin = em_active2 && e_emitted >= e_d && emitted;
@@ -437,7 +438,7 @@ __global__ void __launch_bounds__(kThreads) decode_emit_kernel(
     const bool em_active3 = em_active2 && !node_fin;
 
     // ---- output row ----
-    const bool lane_done = phase == P_DONE && !em_active3 && qn_n == 0;
+    const bool lane_done = phase == P_DONE && !em_active3 && qn.n == 0;
     const bool halo = ex < e_rstart;   // halo nodes feed the ring, unmarked
     int code = C_HOLE;
     if (emitted)
@@ -462,7 +463,7 @@ __global__ void __launch_bounds__(kThreads) decode_emit_kernel(
 
     val[static_cast<size_t>(row) * Ls + l] = out_v;
     xch[static_cast<size_t>(row) * Ls + l] = out_x;
-    ring[static_cast<size_t>(row & tmask) * Ls + l] = out_v;
+    ring[row & tmask] = out_v;
     const int shift = 4 * (row & 7);
     cpk = (cpk & ~(0xFu << shift)) | (static_cast<uint32_t>(code) << shift);
     if ((row & 7) == 7) {
@@ -472,8 +473,8 @@ __global__ void __launch_bounds__(kThreads) decode_emit_kernel(
   }
   // a finished lane is frozen: every later row repeats its stale
   // residual-queue head (val), its meta head or node (xch) and code 0xF
-  const int fill_v = qra[0];
-  const int fill_x = mark_deg ? qna[0] : e_x;
+  const int fill_v = qr.head(0);
+  const int fill_x = mark_deg ? qn.head(0) : e_x;
   for (int r = row; r < cap; ++r) {
     val[static_cast<size_t>(r) * Ls + l] = fill_v;
     xch[static_cast<size_t>(r) * Ls + l] = fill_x;
@@ -483,7 +484,7 @@ __global__ void __launch_bounds__(kThreads) decode_emit_kernel(
       cpk = 0xFFFFFFFFu;
     }
   }
-  const bool done = phase == P_DONE && e_active == 0 && qn_n == 0;
+  const bool done = phase == P_DONE && e_active == 0 && qn.n == 0;
   rows_used[l] = e_donerow;
   ok[l] = done ? 1 : 0;
   diag[0 * Ls + l] = e_markrow;
@@ -491,29 +492,65 @@ __global__ void __launch_bounds__(kThreads) decode_emit_kernel(
   diag[2 * Ls + l] = x;
   diag[3 * Ls + l] = e_x;
   diag[4 * Ls + l] = e_active * 1000000 + e_emitted;
-  diag[5 * Ls + l] = qn_n * 1000 + qc_n * 100 + qi_n * 10 + qr_n;
+  diag[5 * Ls + l] = qn.n * 1000 + qc.n * 100 + qi.n * 10 + qr.n;
+}
+
+// Lanes per block for a ring of T rows: kLanesPerBlock, halved until the
+// block's dynamic shared memory fits the card's per-block limit (the
+// static CodecParams beside it). 0 when not even one lane fits.
+int lanes_per_block(int window, int T, long long* smem_bytes) {
+  static int optin = 0;   // queried once: no query inside a graph capture
+  if (optin == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+  }
+  const long long avail =
+      static_cast<long long>(optin) - static_cast<long long>(sizeof(CodecParams));
+  const long long per_lane = smem_ints_per_lane(window, T) * 4LL;
+  for (int lanes = kLanesPerBlock; lanes >= 1; lanes /= 2) {
+    if (lanes * per_lane <= avail) {
+      *smem_bytes = lanes * per_lane;
+      return lanes;
+    }
+  }
+  *smem_bytes = per_lane;
+  return 0;
 }
 
 template <int W>
-void launch(const CodecParams& prm, const void* lut, const void* stream,
-            long long stream_len, const void* regs, const void* ptrs, int L,
-            int min_interval, int cap, int T, int mark_deg, void* val,
-            void* xch, void* nib, void* rows, void* ok, void* diag,
-            void* ring, cudaStream_t s) {
-  decode_emit_kernel<W><<<(L + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+int launch(const CodecParams& prm, const void* lut, const void* stream,
+           long long stream_len, const void* regs, const void* ptrs, int L,
+           int min_interval, int cap, int T, int mark_deg, void* val,
+           void* xch, void* nib, void* rows, void* ok, void* diag,
+           int lanes, long long smem, cudaStream_t s) {
+  // the opt-in above 48 KB, once per instance and size (never inside a
+  // CUDA-graph capture that follows a launch of the same shape)
+  static long long granted = 0;
+  if (smem > granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_emit_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted = smem;
+  }
+  decode_emit_kernel<W><<<(L + lanes - 1) / lanes, lanes,
+                          static_cast<size_t>(smem), s>>>(
       prm, static_cast<const uint2*>(lut),
       static_cast<const uint16_t*>(stream), stream_len - 1,
-      static_cast<const int*>(regs), static_cast<const long long*>(ptrs), L,
-      min_interval, cap, T, mark_deg, static_cast<int*>(val),
-      static_cast<int*>(xch), static_cast<uint32_t*>(nib),
-      static_cast<int*>(rows), static_cast<uint8_t*>(ok),
-      static_cast<int*>(diag), static_cast<int*>(ring));
+      static_cast<const int*>(regs),
+      static_cast<const long long*>(ptrs), L, min_interval, cap, T, mark_deg,
+      static_cast<int*>(val), static_cast<int*>(xch),
+      static_cast<uint32_t*>(nib), static_cast<int*>(rows),
+      static_cast<uint8_t*>(ok), static_cast<int*>(diag));
+  return static_cast<int>(cudaGetLastError());
 }
 
-using LaunchFn = void (*)(const CodecParams&, const void*, const void*,
-                          long long, const void*, const void*, int, int, int,
-                          int, int, void*, void*, void*, void*, void*, void*,
-                          void*, cudaStream_t);
+using LaunchFn = int (*)(const CodecParams&, const void*, const void*,
+                         long long, const void*, const void*, int, int, int,
+                         int, int, void*, void*, void*, void*, void*, void*,
+                         int, long long, cudaStream_t);
 
 template <int... Ws>
 struct Table {
@@ -522,25 +559,42 @@ struct Table {
 
 }  // namespace
 
+// The launch shape for a window and ring depth: lanes per block and the
+// dynamic shared memory of each block. Returns 0, or cudaErrorInvalidValue
+// when the arguments are out of range or not even one lane's ring fits.
+extern "C" int wgt_decode_emit_geometry(int window, int T, int* lanes,
+                                        long long* smem_bytes) {
+  if (window < 0 || window > kMaxWindow || T < 8 || (T & (T - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *lanes = lanes_per_block(window, T, smem_bytes);
+  return *lanes > 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 // regs: [nreg, L] int32 register file (emit_torch.emit_init_regs), ptrs:
-// [L] int64 absolute entry pointers, ring: [T, L] int32 scratch. Every row
-// of val, xch, nib is written. Returns cudaGetLastError() after the launch.
+// [L] int64 absolute entry pointers. Every row of val, xch, nib is
+// written. Returns cudaGetLastError() after the launch, or the error of
+// the shared-memory opt-in, or cudaErrorInvalidValue when no block of
+// even one lane fits the ring.
 extern "C" int wgt_decode_emit(
     const long long* params, const void* lut, const void* stream,
     long long stream_len, const void* regs, const void* ptrs, int L,
     int window, int min_interval, int cap, int T, int mark_deg, void* val,
-    void* xch, void* nib, void* rows, void* ok, void* diag, void* ring,
+    void* xch, void* nib, void* rows, void* ok, void* diag,
     void* cuda_stream) {
   if (window < 0 || window > kMaxWindow || cap % kUnroll != 0 || T < 8 ||
       (T & (T - 1)) != 0 || stream_len < 1 || params[45] < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const CodecParams prm = codec_params(params);
+  long long smem = 0;
+  const int lanes = lanes_per_block(window, T, &smem);
+  if (lanes == 0) return static_cast<int>(cudaErrorInvalidValue);
   using Fns = Table<0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
                     16>;
   if (L > 0)
-    Fns::fns[window](prm, lut, stream, stream_len, regs, ptrs, L,
-                     min_interval, cap, T, mark_deg, val, xch, nib, rows, ok,
-                     diag, ring, static_cast<cudaStream_t>(cuda_stream));
+    return Fns::fns[window](prm, lut, stream, stream_len, regs, ptrs, L,
+                            min_interval, cap, T, mark_deg, val, xch, nib,
+                            rows, ok, diag, lanes, smem,
+                            static_cast<cudaStream_t>(cuda_stream));
   return static_cast<int>(cudaGetLastError());
 }
 

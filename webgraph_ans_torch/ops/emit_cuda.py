@@ -4,13 +4,15 @@ wrapper.
 The kernel replaces the TPU kernel `decode_emit_pallas`
 (webgraph_ans_tpu/ops/emit_pallas.py:501): one thread per lane runs the
 token FSM, the bounded run queues and the merge of ops/emit_torch.py, with
-the T-row output ring in device memory. It is built with nvcc for sm_90a
-into `webgraph_ans_torch/build/` on first use and loaded with ctypes.
+the T-row output ring, the queues and the window rings in the block's
+shared memory. It is built with nvcc for sm_90a into
+`webgraph_ans_torch/build/` on first use and loaded with ctypes.
 
 `decode_emit` dispatches on the tensors' device only: CPU tensors go to
 the plain PyTorch version (emit_torch.decode_emit_plain), CUDA tensors to
-the kernel; anything else raises. `decode_emit.launches` counts kernel
-launches.
+the kernel; anything else raises. `decode_emit.launches` counts the
+kernel's launches that run: a launch recorded into a CUDA graph capture
+is not counted, each replay of that graph is (graph_decode).
 """
 
 from __future__ import annotations
@@ -47,13 +49,34 @@ def _load() -> ctypes.CDLL:
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.wgt_decode_emit.argtypes = [
                 ctypes.POINTER(ctypes.c_longlong), vp, vp, ctypes.c_longlong,
-                vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp,
-                vp]
+                vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp]
             lib.wgt_decode_emit.restype = ci
+            lib.wgt_decode_emit_geometry.argtypes = [
+                ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_longlong)]
+            lib.wgt_decode_emit_geometry.restype = ci
             lib.wgt_emit_error_string.argtypes = [ci]
             lib.wgt_emit_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def _error(lib, err: int, what: str):
+    raise RuntimeError(f"decode_emit {what} failed: "
+                       + lib.wgt_emit_error_string(err).decode())
+
+
+def launch_geometry(window: int, T: int) -> dict:
+    """The kernel's launch shape on the current card for a window and ring
+    depth: lanes (threads) per block and the dynamic shared memory each
+    block asks for (the T-row ring, the queues and the window rings of
+    each lane). Raises when not even one lane's ring fits a block."""
+    lib = _load()
+    lanes, smem = ctypes.c_int(), ctypes.c_longlong()
+    err = lib.wgt_decode_emit_geometry(window, T, ctypes.byref(lanes),
+                                       ctypes.byref(smem))
+    if err != 0:
+        _error(lib, err, f"launch shape (window {window}, T {T})")
+    return {"lanes_per_block": lanes.value, "smem_bytes": smem.value}
 
 
 def _launch(tables: DecoderTables, regs, ptrs, window: int,
@@ -83,18 +106,17 @@ def _launch(tables: DecoderTables, regs, ptrs, window: int,
     rows = torch.empty(L, dtype=i32, device=dev)
     ok = torch.empty(L, dtype=torch.bool, device=dev)
     diag = torch.empty((6, L), dtype=i32, device=dev)
-    ring = torch.empty((T, L), dtype=i32, device=dev)   # kernel scratch
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.wgt_decode_emit(
         c_params, tables.lut.data_ptr(), tables.stream.data_ptr(),
         tables.stream.shape[0], regs.data_ptr(), ptrs.data_ptr(), L, window,
         min_interval, cap, T, int(mark_deg), val.data_ptr(), xch.data_ptr(),
         nib.data_ptr(), rows.data_ptr(), ok.data_ptr(), diag.data_ptr(),
-        ring.data_ptr(), stream)
+        stream)
     if err != 0:
-        raise RuntimeError("decode_emit kernel launch failed: "
-                           + lib.wgt_emit_error_string(err).decode())
-    decode_emit.launches += 1
+        _error(lib, err, f"kernel launch (window {window}, T {T})")
+    if not torch.cuda.is_current_stream_capturing():
+        decode_emit.launches += 1
     return val, xch, nib, rows, ok, diag
 
 

@@ -554,6 +554,39 @@ class TorchGraphDecoder:
                 pl["cap"] = cap
         return val, xch, nib, cap
 
+    def _steady(self, pl: dict):
+        """The verified steady state: decode_emit in mark_deg mode and the
+        cached-layout post-pass, with no host synchronisation."""
+        mc = pl["post_meta"]
+        val, xch, _, _, _, _ = decode_emit(
+            self.tables, pl["regs"], pl["ptrs"], self.window,
+            self.min_interval, pl["cap"], T=pl["T"], mark_deg=True)
+        return emit_post.post_steady(
+            val, xch, *(mc[k] for k in emit_post.STEADY_KEYS))
+
+    def _steady_graph(self, pl: dict):
+        """The steady state on CUDA as one CUDA graph, the counterpart of
+        the JAX package's one fused steady program (_emit_e2e_fused): the
+        first steady call runs eagerly, then records the kernel and the
+        post-pass (some hundred small launches) into a graph, with one
+        host synchronisation as the capture starts; every later call
+        replays it. A replay overwrites the graph's outputs, so each call
+        returns copies of succs2d and degs (one device copy of
+        [cap, L] + [n] int32); starts_flat is the cached layout itself, as
+        in the eager call."""
+        captured = pl.get("graph")
+        if captured is None:
+            out = self._steady(pl)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                static = self._steady(pl)
+            pl["graph"] = (graph, static)
+            return out
+        graph, (succs2d, starts_flat, degs) = captured
+        graph.replay()
+        decode_emit.launches += 1      # the replay runs the kernel once
+        return succs2d.clone(), starts_flat, degs.clone()
+
     def decode_to_adjacency_device(self, num_lanes: int = 2048):
         """End-to-end merged-emit decode: the kernel and the post-pass.
         Returns (succs2d [cap, L] int32, starts_flat [n] int32, degs [n]
@@ -565,7 +598,8 @@ class TorchGraphDecoder:
         degrees; the next rebalances onto reference-safe, element-balanced
         bounds and refines them once on the observed rows; the plan is
         then verified, and later calls run the kernel (mark_deg mode) and
-        the cached-layout post-pass with no host synchronisation."""
+        the cached-layout post-pass with no host synchronisation; on CUDA
+        as one CUDA graph (_steady_graph)."""
         if self.window > MAX_WINDOW:
             raise NotImplementedError(
                 f"window {self.window} > {MAX_WINDOW}: the merged-emit "
@@ -575,11 +609,9 @@ class TorchGraphDecoder:
         pl0 = self._plans.setdefault(("emit", num_lanes), {})
         mc0 = pl0.get("post_meta") or {}
         if pl0.get("verified") and "fx_offs" in mc0:
-            val, xch, _, _, _, _ = decode_emit(
-                self.tables, pl0["regs"], pl0["ptrs"], self.window,
-                self.min_interval, pl0["cap"], T=pl0["T"], mark_deg=True)
-            return emit_post.post_steady(
-                val, xch, *(mc0[k] for k in emit_post.STEADY_KEYS))
+            if pl0["regs"].device.type == "cuda":
+                return self._steady_graph(pl0)
+            return self._steady(pl0)
         val, xch, nib, _ = self.decode_emit_raw(
             num_lanes, check=not pl0.get("verified"))
         pl = self._plans[("emit", num_lanes)]
