@@ -251,18 +251,34 @@ PTXAS_FIELDS = (("registers", r"Used (\d+) registers"),
                 ("spill_loads", r"(\d+) bytes spill loads"))
 
 
+def _kernel_name(mangled: str) -> str:
+    """The function's own name in an Itanium-mangled kernel symbol: the
+    last length-prefixed component of its (nested) name."""
+    nested = mangled.startswith("_ZN")
+    i, name = (3 if nested else 2), "kernel"
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+        if not nested:
+            break
+    return name
+
+
 def ptxas_report(log: str) -> dict:
     """Registers, static shared memory, stack and spills of each kernel
     instance in nvcc's -Xptxas -v log, keyed by its template argument
-    (emit_aux, or the window), or "kernel" for a kernel that is no
-    template."""
+    (emit_aux, or the window), or by the kernel's name for a kernel that
+    is no template."""
     out, key = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(.*?)'", ln)
         if m:
             t = re.search(r"I(Lb|Li)(\d+)E", m.group(1))
             if t is None:
-                key = "kernel"
+                key = _kernel_name(m.group(1))
             elif t.group(1) == "Lb":
                 key = "aux" if t.group(2) == "1" else "token"
             else:
@@ -302,6 +318,27 @@ def encode_bound(plan, wtotals) -> dict:
     return {**_bound(read, written, ops), "tokens": tokens,
             "stream_words": words, "node_starts": nodes,
             "layout_bytes": read + layout}
+
+
+def dominant_symbol_tokens():
+    """(model, values, components) of 3000 nodes whose tokens use a
+    component with a symbol that fills 7/8 of its frame (and one of
+    frequency 1): the division's reciprocal then overestimates the
+    quotient on states just below the renorm bound and its downward
+    correction runs (7 state rows of this seed depend on it), which no
+    graph's model here does."""
+    from webgraph_ans_torch.ans.model import ANSModel, ComponentModel
+    empty = ComponentModel(np.zeros(0, np.uint16), 0, 2, 2)
+    model = ANSModel([ComponentModel(np.full(8, 4, np.uint16), 5, 2, 2),
+                      empty, ComponentModel(np.array([7, 1], np.uint16), 3,
+                                            2, 2)] + [empty] * 6)
+    rng = np.random.default_rng(0)
+    per_node = rng.integers(0, 7, 3000)
+    comps = np.concatenate([[0] + [2] * int(k) for k in per_node]) \
+        .astype(np.uint8)
+    vals = np.where(comps == 0, rng.integers(0, 8, len(comps)),
+                    rng.integers(0, 2, len(comps))).astype(np.uint64)
+    return model, vals, comps
 
 
 def models_equal(a, b) -> bool:
@@ -693,9 +730,10 @@ def main() -> int:
              rows_used_max=int(ek[3].max()), **geometry, **ebound)
 
         # ---- 11. encode kernel vs plain on small inputs: the 2000-node
-        # graph of phase 3 under each configuration, the edge graphs, and a
+        # graph of phase 3 under each configuration, the edge graphs, a
         # cnr-2000 token prefix under the cnr-2000 model (the fold-threshold
-        # exponent passes 31 there) ----
+        # exponent passes 31 there) and a dominant-symbol stream (the
+        # division's downward correction) ----
         cases = []
         for name, w, r, mi, _step in SMALL_CONFIGS:
             res = compress_adjacency(adj_small, w, r, mi)
@@ -712,6 +750,7 @@ def main() -> int:
         K = int(np.nonzero(comps_c[:30000] == 0)[0][-1])
         cases.append(("cnr_prefix", res_cnr.prelude.model, vals_c[:K],
                       comps_c[:K], 8))
+        cases.append(("dominant_symbol", *dominant_symbol_tokens(), 64))
         enc_small = []
         for name, model, vals_e, comps_e, nb in cases:
             eplan = encode_plan(model, vals_e, comps_e, nb, device=cuda)
@@ -760,14 +799,28 @@ def main() -> int:
         t_enc = cuda_ms(lambda: encode_cuda.encode_blocks(
             *encode_args(cplan)))
         # the launch alone, without the wrapper's component-id check (one
-        # reduction and a host read)
+        # reduction and a host read), and each of its two kernel launches
         t_launch = cuda_ms(lambda: encode_cuda._launch(*encode_args(cplan)))
+        cemit = torch.empty_like(ekres[0])
+        crec = encode_cuda.records(cplan.params, cplan.tab, cplan.tokens,
+                                   cemit, cplan.cap)
+        t_records = cuda_ms(lambda: encode_cuda.records(
+            cplan.params, cplan.tab, cplan.tokens, cemit, cplan.cap))
+        t_lanes = cuda_ms(lambda: encode_cuda.lanes(
+            crec, cemit, cplan.tstart, cplan.tend, cplan.cap,
+            cplan.params[9]))
+        del crec, cemit
+        enc_geometry = encode_cuda.launch_geometry(
+            cplan.tstart.shape[0], cplan.tokens.shape[0], cplan.cap,
+            cplan.params[9])
         enc_bound = encode_bound(cplan, ekres[3])
         emit("encode_kernel_time", kernel="encode_blocks",
              lanes=cplan.tstart.shape[0], cap=cplan.cap,
              max_folds=cplan.params[9], ms=t_enc, launch_ms=t_launch,
-             plain_ms=enc_plain_s * 1e3, library_ms=None, **cmp_enc,
-             **enc_bound)
+             records_ms=t_records, lanes_ms=t_lanes,
+             ns_per_step=t_launch["median"] * 1e6 / cplan.cap,
+             plain_ms=enc_plain_s * 1e3, library_ms=None, **enc_geometry,
+             **cmp_enc, **enc_bound)
         if not cmp_enc["bit_equal"]:
             raise SystemExit("cnr-2000: encode kernel and plain version "
                              "differ")
@@ -853,7 +906,7 @@ def main() -> int:
         "max_abs_err": cmp_enc["max_abs_err"], "ms": t_enc["median"],
         "plain_ms": enc_plain_s * 1e3, "bound_ms": enc_bound["bound_ms"],
         "bound_by": enc_bound["bound_by"], "library_ms": None,
-        "lanes": cplan.tstart.shape[0],
+        "lanes": cplan.tstart.shape[0], **enc_geometry,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,10 @@ from webgraph_ans_torch.bvgraph.random_access import ANSBvGraph as TorchGraph
 from webgraph_ans_torch.ops import decode_torch
 from webgraph_ans_torch.ops import reconstruct_device as torch_recon
 from webgraph_ans_torch.ops.graph_decode import TorchGraphDecoder
+import jax_native_build
+
+# the JAX package's native library, built once before any test loads it
+jax_native_build.ensure()
 
 def _rand_adj(n=120, seed=5, dmax=9):
     rng = np.random.default_rng(seed)

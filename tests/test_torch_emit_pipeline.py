@@ -24,6 +24,10 @@ from webgraph_ans_tpu.ops.graph_decode import TpuGraphDecoder
 from webgraph_ans_torch.bvgraph.random_access import ANSBvGraph as TorchGraph
 from webgraph_ans_torch.ops import emit_post, emit_torch, graph_decode
 from webgraph_ans_torch.ops.graph_decode import TorchGraphDecoder
+import jax_native_build
+
+# the JAX package's native library, built once before any test loads it
+jax_native_build.ensure()
 
 LANES = 8
 

@@ -21,6 +21,10 @@ from webgraph_ans_tpu.ops import emit_post as jpost
 from webgraph_ans_tpu.ops.reconstruct_device import _quant as jquant
 from webgraph_ans_torch.ops import emit_post as tpost
 from webgraph_ans_torch.ops import reconstruct_device as trecon
+import jax_native_build
+
+# the JAX package's native library, built once before any test loads it
+jax_native_build.ensure()
 
 # the JAX post_steady takes the same cached-layout arguments in this order
 STEADY_KEYS = tpost.STEADY_KEYS

@@ -24,6 +24,10 @@ from webgraph_ans_torch.bvgraph.sequential import ANSBvGraphSeq
 from webgraph_ans_torch.ops import encode_cuda, encode_torch, emit_post
 from webgraph_ans_torch.ops.graph_decode import TorchGraphDecoder
 from webgraph_ans_torch.ops.reconstruct_torch import reconstruct
+import jax_native_build
+
+# the JAX package's native library, built once before any test loads it
+jax_native_build.ensure()
 
 CNR = "tests/data/cnr-2000/cnr-2000"
 EXTS = (".ans", ".states", ".pointers")

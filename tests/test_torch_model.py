@@ -14,6 +14,10 @@ from webgraph_ans_tpu.ops.model_jax import build_model_jax
 from webgraph_ans_torch.ops.model_torch import build_model_torch
 
 from conftest import zipf_symbols
+import jax_native_build
+
+# the JAX package's native library, built once before any test loads it
+jax_native_build.ensure()
 
 
 def _hist_from_sequences(seqs):

@@ -16,6 +16,10 @@ from webgraph_ans_tpu.ops.reconstruct_jax import reconstruct as jax_reconstruct
 from webgraph_ans_torch import ANSBvGraph as TorchGraph
 from webgraph_ans_torch import TorchGraphDecoder, reconstruct, store
 from webgraph_ans_torch.bvgraph.graph import load_bvgraph
+import jax_native_build
+
+# the JAX package's native library, built once before any test loads it
+jax_native_build.ensure()
 
 CNR = "tests/data/cnr-2000/cnr-2000"
 

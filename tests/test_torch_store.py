@@ -16,6 +16,10 @@ from webgraph_ans_tpu.bvgraph.random_access import ANSBvGraph as JaxGraph
 from webgraph_ans_torch.bvgraph.graph import Adjacency as TorchAdjacency
 from webgraph_ans_torch.bvgraph.graph import load_bvgraph
 from webgraph_ans_torch.bvgraph.random_access import ANSBvGraph as TorchGraph
+import jax_native_build
+
+# the JAX package's native library, built once before any test loads it
+jax_native_build.ensure()
 
 CNR = "tests/data/cnr-2000/cnr-2000"
 EXTS = (".ans", ".states", ".pointers")
