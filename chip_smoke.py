@@ -20,16 +20,28 @@ rebalance and refinement into the verified steady state, which replays
 one CUDA graph, checked through to_dense_csr; the steady call also
 without the graph, and at 4096 lanes), and block-parallel compression
 (store with 512 encode blocks and the device model search, its artifact
-decoded back through both device paths and the sequential reader). Each
+decoded back through both device paths and the sequential reader). Then
+the paths built on the same kernels: the sort-path reconstruction
+(decode_to_csr_device, the aux-mode decode and the device reconstruction)
+on cnr-2000 and on its high-compression artifact (window 16, unbounded
+reference chains: the deep rounds), the fallbacks of
+decode_to_adjacency_device onto it (a window past 16, a post-pass error),
+and batch random access on cnr-2000 (wave decode, the device CSR server,
+per-query merged-emit lanes, with their reruns at larger caps, and the
+full-decode route) and on a block-encoded, phase-sampled artifact, each
+checked list for list, with the token and merged-emit kernels held
+against their plain versions at the shapes random access gives them. Each
 phase prints one JSON line; any failure raises and exits non-zero. The
-line before the last lists the kernels; the last line is the device
-record. Exits 1 without printing a result when CUDA is not available.
+line before the last lists the kernels, with their launches summed over
+every path; the last line is the device record. Exits 1 without printing
+a result when CUDA is not available.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 import re
 import statistics
@@ -84,6 +96,9 @@ SMALL_CONFIGS = [
     ("w16_deep_refs", 16, 2_000_000_000, 4, 1),
     ("phase_step4", 7, 3, 2, 4),
 ]
+# the token decode alone also serves windows past the merged-emit
+# kernel's 16 (the sort path)
+BLOCKS_ONLY_CONFIGS = [("w20", 20, 3, 2, 1)]
 # merged-emit cases forced into dirty rows: a ring of 32 rows on the
 # window-7 artifact (copy sources fall out of the ring: codes 8 and 9);
 # the phase-sampled artifact has no halo (cross-lane parents: code 7); the
@@ -358,6 +373,389 @@ def codes_hit(nib: torch.Tensor) -> dict:
     return {str(c): counts[c] for c in DIRTY_CODES}
 
 
+def launch_counts(reset: bool = False) -> dict:
+    """The decode kernels' launch counts; reset sets them to 0 first."""
+    from webgraph_ans_torch.ops import decode_cuda, emit_cuda
+    blocks, emit_k = decode_cuda.decode_blocks, emit_cuda.decode_emit
+    if reset:
+        blocks.launches = blocks.aux_launches = emit_k.launches = 0
+    return {"decode_blocks": blocks.launches,
+            "decode_blocks_aux": blocks.aux_launches,
+            "decode_emit": emit_k.launches}
+
+
+class PathRuns:
+    """Runs each path with the launch counts set to 0 just before and read
+    just after, fails when a kernel the path needs never launched, and
+    sums the counts over the paths."""
+
+    def __init__(self):
+        self.total = {k: 0 for k in launch_counts()}
+
+    def __call__(self, name: str, fn, needs):
+        launch_counts(reset=True)
+        res = fn()
+        counts = launch_counts()
+        for k, v in counts.items():
+            self.total[k] += v
+        missing = [k for k in needs if counts[k] < 1]
+        if missing:
+            raise SystemExit(f"{name}: never launched {missing} ({counts})")
+        return res, counts
+
+
+def csr_exact(offsets, succs, E, adj) -> bool:
+    """A device CSR (offsets [n+1], succs[:E]) equals the input graph."""
+    return (E == adj.num_arcs
+            and np.array_equal(offsets.cpu().numpy().astype(np.int64),
+                               adj.offsets.astype(np.int64))
+            and np.array_equal(succs[:E].cpu().numpy().astype(np.uint32),
+                               adj.succs))
+
+
+def adjacency_equal(a, b) -> bool:
+    return (np.array_equal(a.offsets.astype(np.int64),
+                           b.offsets.astype(np.int64))
+            and np.array_equal(a.succs.astype(np.uint32),
+                               b.succs.astype(np.uint32)))
+
+
+def rand_lists(n: int, seed: int, dmax: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [sorted(rng.choice(n, size=int(rng.integers(0, dmax)),
+                              replace=False).tolist()) for _ in range(n)]
+
+
+class Warnings(logging.Handler):
+    """Collects the warnings a logger emits."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def sort_path_phases(g, adj, edec, runs: PathRuns) -> None:
+    """Phases 15-17: the sort path on cnr-2000 (serial and
+    high-compression) and the fallbacks of decode_to_adjacency_device."""
+    from webgraph_ans_torch import ANSBvGraph, TorchGraphDecoder
+    from webgraph_ans_torch.bvgraph.graph import Adjacency
+    from webgraph_ans_torch.bvgraph.store import compress_adjacency
+    from webgraph_ans_torch.ops import graph_decode
+    from webgraph_ans_torch.ops.emit_post import to_host_lists
+    from webgraph_ans_torch.ops.reconstruct_device import (
+        DEPTH_BUCKETS, parse_stats, reconstruct_device)
+
+    n, arcs = g.num_nodes, g.num_arcs
+
+    # ---- 15. the sort path on the serial artifact: cold (the aux cap
+    # tightened by one observation decode, the meta fetched), then warm
+    # (the cached meta only verified), and the reconstruction alone ----
+    sdec = TorchGraphDecoder(g)
+    (res, cold_s), counts = runs(
+        "sort path", lambda: timed(
+            lambda: sdec.decode_to_csr_device(EMIT_LANES)),
+        ["decode_blocks_aux"])
+    exact = [csr_exact(*res, adj)]
+    warm = []
+    for _ in range(5):
+        res, sec = timed(lambda: sdec.decode_to_csr_device(EMIT_LANES))
+        warm.append(sec)
+        exact.append(csr_exact(*res, adj))
+    del res
+    out, _, acap = sdec.decode_raw(EMIT_LANES, emit_aux=True)
+    mc = sdec.plan(EMIT_LANES)["recon_meta"]
+    t_cached = cuda_ms(lambda: reconstruct_device(out, n, arcs, acap, mc),
+                       runs=10)
+    t_uncached = cuda_ms(lambda: reconstruct_device(out, n, arcs, acap),
+                         runs=5)
+    del out
+    warm_s = statistics.median(warm)
+    emit("sort_path", graph="cnr-2000", lanes=EMIT_LANES, cap=acap,
+         cold_seconds=cold_s, cold_ns_per_arc=cold_s * 1e9 / arcs,
+         warm_seconds=warm_s, warm_ns_per_arc=warm_s * 1e9 / arcs,
+         warm_runs=warm, reconstruct_ms_cached_meta=t_cached,
+         reconstruct_ms_uncached=t_uncached,
+         meta=[int(x) for x in mc["meta"][:4]], exact=all(exact),
+         launches=counts)
+    if not all(exact):
+        raise SystemExit("sort path: the CSR differs from the input graph")
+    del sdec
+
+    # ---- 16. the sort path on cnr-2000 hc (window 16, unbounded
+    # reference chains, no safe breaks): the deep rounds ----
+    res_hc, store_s = timed(
+        lambda: compress_adjacency(adj, 16, 2_000_000_000, 4))
+    hdec = TorchGraphDecoder(ANSBvGraph(res_hc.prelude, res_hc.states,
+                                        res_hc.pointers))
+    (res, hc_cold_s), counts = runs(
+        "sort path hc", lambda: timed(
+            lambda: hdec.decode_to_csr_device(EMIT_LANES)),
+        ["decode_blocks_aux"])
+    hc_exact = [csr_exact(*res, adj)]
+    res, hc_warm_s = timed(lambda: hdec.decode_to_csr_device(EMIT_LANES))
+    hc_exact.append(csr_exact(*res, adj))
+    del res
+    meta = hdec.plan(EMIT_LANES)["recon_meta"]["meta"]
+    max_depth = int(meta[3])
+    # pass 1 alone: its reference-chain depths by pointer jumping, a fixed
+    # ceil(log2 n) rounds without a host synchronisation
+    out, _, hcap = hdec.decode_raw(EMIT_LANES, emit_aux=True)
+    t_parse = cuda_ms(lambda: parse_stats(out, n, hcap), runs=5)
+    del out
+    emit("sort_path_hc", graph="cnr-2000 hc", window=16,
+         max_ref_count=2_000_000_000, min_interval_length=4,
+         store_seconds=store_s, stream_words=len(res_hc.prelude.stream),
+         lanes=EMIT_LANES, cold_seconds=hc_cold_s,
+         cold_ns_per_arc=hc_cold_s * 1e9 / arcs, warm_seconds=hc_warm_s,
+         warm_ns_per_arc=hc_warm_s * 1e9 / arcs, max_depth=max_depth,
+         parse_stats_ms=t_parse, depth_jump_rounds=(n - 1).bit_length(),
+         deep_rounds=max_depth if max_depth >= DEPTH_BUCKETS - 1 else 0,
+         exact=all(hc_exact), launches=counts)
+    if not all(hc_exact) or max_depth < DEPTH_BUCKETS - 1:
+        raise SystemExit("sort path hc: not exact, or the deep rounds "
+                         "never ran")
+    del hdec, res_hc
+
+    # ---- 17. the fallbacks of decode_to_adjacency_device on the card: a
+    # window past 16, and a post-pass error on a window-16 chain 299 deep
+    # without safe breaks, whose first 512-row ring loses node 1's copy
+    # source (600 rows back) ----
+    caught = Warnings()
+    logging.getLogger(graph_decode.__name__).addHandler(caught)
+    cases = {"window20": (rand_lists(2000, 20, 24), (20, 3, 2),
+                          ["decode_blocks_aux"]),
+             "w16_chain_no_breaks": ([list(range(0, 1800, 3))] * 300,
+                                     (16, 2_000_000_000, 4),
+                                     ["decode_emit", "decode_blocks_aux"])}
+    fallbacks = []
+    for name, (lists_f, args, needs) in cases.items():
+        res_f = compress_adjacency(Adjacency.from_lists(lists_f), *args)
+        fdec = TorchGraphDecoder(ANSBvGraph(res_f.prelude, res_f.states,
+                                            res_f.pointers))
+        caught.messages.clear()
+
+        def two_calls():
+            return [to_host_lists(*fdec.decode_to_adjacency_device(
+                SMALL_LANES), len(lists_f)) for _ in range(2)]
+
+        got, counts = runs(f"fallback {name}", two_calls, needs)
+        cause = fdec._plans[("emit", SMALL_LANES)].get("emit_broken")
+        fallbacks.append({
+            "case": name, "cause": cause, "warnings": caught.messages[:],
+            "device": str(fdec.device), "launches": counts,
+            "exact": all([x.tolist() for x in lists_got] == lists_f
+                         for lists_got in got)})
+    logging.getLogger(graph_decode.__name__).removeHandler(caught)
+    steady_broken = edec._plans[("emit", EMIT_LANES)].get("emit_broken")
+    emit("fallbacks", cases=fallbacks,
+         cnr2000_steady_emit_broken=steady_broken)
+    if not (all(f["exact"] for f in fallbacks)
+            and fallbacks[0]["cause"] == "window 20 > 16"
+            and "post-pass" in (fallbacks[1]["cause"] or "")
+            and not steady_broken):
+        raise SystemExit("fallbacks: wrong lists or causes, or cnr-2000's "
+                         "merged-emit path fell back")
+
+
+def wave_vs_plain(ra, q) -> dict:
+    """decode_blocks in token mode against its plain version on the
+    inputs of the first wave of ra's batch of the queries q: one lane a
+    segment holding a query, at the cap that wave ran."""
+    from webgraph_ans_torch.ops.decode_cuda import decode_blocks
+    from webgraph_ans_torch.ops.decode_torch import decode_blocks_plain
+    d = ra.dec
+    segs = np.unique(ra._seg_of(np.unique(q)))
+    lanes, cap = ra.last_waves[0]
+    if len(segs) != lanes:
+        raise SystemExit(f"wave inputs: {len(segs)} lanes, the batch's "
+                         f"first wave ran {lanes}")
+    args = (d.tables, *ra._segment_inputs(segs), d.window, d.min_interval,
+            cap)
+    return {"lanes": lanes, "cap": cap,
+            **compare(decode_blocks(*args), decode_blocks_plain(*args))}
+
+
+def emit_rounds_vs_plain(era, q, rounds: list, max_plain_cap: int) -> list:
+    """decode_emit against its plain version on the per-query lanes of
+    era's batch of the queries q, round by round up to max_plain_cap:
+    the register files and pointers that batch built, its lane count, cap
+    and T. Each round's queries are those the plain version's flags
+    leave unfinished in the round before; the counts of lanes past the
+    cap and of dirty lanes the batch recorded must be the plain
+    version's."""
+    from webgraph_ans_torch.ops.emit_cuda import decode_emit
+    from webgraph_ans_torch.ops.emit_torch import decode_emit_plain
+    d = era.dec
+    todo = np.unique(q)
+    out = []
+    for r in rounds:
+        if r["cap"] > max_plain_cap:
+            break
+        qp = era._padded(todo)
+        regs, ptrs = era._lane_inputs(torch.from_numpy(qp).cuda())
+        args = (d.tables, regs, ptrs, d.window, d.min_interval, r["cap"])
+        k = decode_emit(*args, T=r["T"])
+        p = decode_emit_plain(*args, T=r["T"])
+        ok = p[4][:len(todo)].cpu().numpy()
+        dirty = ((p[5][1][:len(todo)] & 1) != 0).cpu().numpy()
+        res = {"cap": r["cap"], "T": r["T"], "lanes": len(qp),
+               "queries": len(todo), **compare(k, p),
+               "plain_over_cap": int((~ok).sum()),
+               "plain_dirty": int((ok & dirty).sum()),
+               "batch_over_cap": r["over_cap"], "batch_dirty": r["dirty"]}
+        res["flags_agree"] = (len(qp) == r["lanes"]
+                              and len(todo) == r["queries"]
+                              and res["plain_over_cap"] == r["over_cap"]
+                              and res["plain_dirty"] == r["dirty"])
+        out.append(res)
+        todo = todo[~ok]
+    return out
+
+
+def random_access_phases(g, adj, edec, runs: PathRuns) -> dict:
+    """Phases 18-19: batch random access on cnr-2000 and on a
+    block-encoded, phase-sampled artifact. Returns the comparisons of
+    each kernel with its plain version at the shapes these paths give
+    it."""
+    from webgraph_ans_torch import (ANSBvGraph, TorchCsrServer,
+                                    TorchEmitRandomAccess, TorchGraphDecoder,
+                                    TorchRandomAccess)
+    from webgraph_ans_torch.bvgraph.graph import Adjacency
+    from webgraph_ans_torch.bvgraph.store import compress_adjacency
+    from webgraph_ans_torch.ops.random_torch import gather_rows
+    from webgraph_ans_torch.ops.reconstruct_device import _quant
+
+    n = g.num_nodes
+    rng = np.random.default_rng(2026)
+
+    def native(q):
+        return g.successors_batch(np.asarray(q).astype(np.uint64))
+
+    # ---- 18. random access on cnr-2000, each batch against the port's
+    # native per-node decoder ----
+    ra = TorchRandomAccess(TorchGraphDecoder(g))
+    wave = []
+    for _ in range(3):
+        q = rng.integers(0, n, 10_000)
+        (got, sec), counts = runs("wave random access", lambda: timed(
+            lambda: ra.successors_batch(q)), ["decode_blocks"])
+        wave.append({"seconds": sec, "arcs": len(got.succs),
+                     "ns_per_arc": sec * 1e9 / max(len(got.succs), 1),
+                     "waves": ra.last_waves,
+                     "decode_blocks_launches": counts["decode_blocks"],
+                     "exact": adjacency_equal(got, native(q))})
+    # the token kernel at the first wave's lanes and cap, against plain
+    wave_cmp = wave_vs_plain(ra, q)
+    emit("wave_kernel_vs_plain", **wave_cmp)
+    if not wave_cmp["bit_equal"]:
+        raise SystemExit("decode_blocks differs from its plain version on "
+                         "a random-access wave")
+
+    (srv, build_s), counts = runs("CSR server", lambda: timed(
+        lambda: TorchCsrServer(TorchGraphDecoder(g), num_lanes=EMIT_LANES)),
+        ["decode_blocks_aux"])
+    q1m = rng.integers(0, n, 1_000_000)
+    got = srv.successors_batch(q1m)
+    csr_exact_1m = adjacency_equal(got, native(q1m))
+    serve = [timed(lambda: srv.serve(q1m))[1] for _ in range(5)]
+    qd = torch.from_numpy(q1m.astype(np.int32)).to(srv.succs.device)
+    out_cap = _quant(len(got.succs))
+    t_gather = cuda_ms(lambda: gather_rows(srv.offsets, srv.succs, qd,
+                                           out_cap), runs=10)
+    serve_s = statistics.median(serve)
+    csr = {"build_seconds": build_s, "build_launches": counts,
+           "queries": len(q1m), "arcs": len(got.succs),
+           "batch_seconds": serve_s,
+           "ns_per_arc": serve_s * 1e9 / len(got.succs),
+           "gather_device_ms": t_gather, "exact": csr_exact_1m}
+    del srv, got, qd
+
+    era = TorchEmitRandomAccess(edec)
+    emit_runs = {}
+    for B in (4096, 65_536):
+        batches = []
+        for _ in range(4):
+            q = rng.integers(0, n, B)
+            (got, sec), counts = runs(
+                f"emit random access {B}",
+                lambda: timed(lambda: era.successors_batch(q)),
+                ["decode_emit"])
+            rounds = era.last_rounds
+            uniq = len(np.unique(q))
+            batches.append({
+                "seconds": sec, "arcs": len(got.succs),
+                "ns_per_arc": sec * 1e9 / max(len(got.succs), 1),
+                "rounds": rounds,
+                "rerun_share": (rounds[0]["over_cap"] / uniq if rounds
+                                else 0.0),
+                "unclean_to_wave": era.last_unclean,
+                "wave_seconds": era.last_wave_seconds,
+                "decode_emit_launches": counts["decode_emit"],
+                "decode_blocks_launches": counts["decode_blocks"],
+                "exact": adjacency_equal(got, native(q)),
+                # what is left to the wave decode: the dirty lanes of
+                # every round and the lanes past the last cap whose ring
+                # fits
+                "unclean_consistent": era.last_unclean == (
+                    sum(r["dirty"] for r in rounds)
+                    + (rounds[-1]["over_cap"] if rounds else 0))})
+            if B == 4096:
+                last_q, last_rounds = q, rounds
+        emit_runs[str(B)] = {
+            "route": ("full decode" if era._full_decode_cheaper(B)
+                      else "per-query lanes"), "batches": batches}
+    emit("random_access", graph="cnr-2000", wave_10000=wave,
+         csr_server=csr, emit=emit_runs,
+         full_decode_from_unique=-(-n // (era.H + 1)))
+    if not (all(w["exact"] for w in wave) and csr["exact"]
+            and all(b["exact"] and b["unclean_consistent"]
+                    for r in emit_runs.values() for b in r["batches"])):
+        raise SystemExit("random access: a batch differs from the native "
+                         "decoder, or its unclean count from its rounds")
+    # the merged-emit kernel on the per-query lanes of the last
+    # 4,096-query batch (its first round and the reruns up to cap 1536),
+    # against plain
+    emit_cmp = emit_rounds_vs_plain(era, last_q, last_rounds, 1536)
+    emit("emit_lanes_kernel_vs_plain", rounds=emit_cmp)
+    if not (emit_cmp and all(r["bit_equal"] and r["flags_agree"]
+                             for r in emit_cmp)):
+        raise SystemExit("decode_emit differs from its plain version on "
+                         "the per-query lanes, or the batch's flags from "
+                         "the plain version's")
+
+    # ---- 19. random access on a block-encoded, phase-sampled artifact,
+    # against the input lists (the reference's native decode is wrong
+    # there: nodes 92, 136, 137) ----
+    lists_b = rand_lists(180, 17, 11)
+    res_b = compress_adjacency(Adjacency.from_lists(lists_b), 7, 3, 2,
+                               encode_blocks=4)
+    bdec = TorchGraphDecoder(sampled_graph(ANSBvGraph, res_b, 3))
+    q = np.concatenate([np.arange(180), [92, 136, 137, 136]])
+    want = [lists_b[x] for x in q]
+    got_w, counts_w = runs(
+        "wave random access, blocks",
+        lambda: TorchRandomAccess(bdec).successors_batch(q).to_lists(),
+        ["decode_blocks"])
+    got_c, counts_c = runs("CSR server, blocks", lambda: TorchCsrServer(
+        bdec, num_lanes=8).successors_batch(q).to_lists(),
+        ["decode_blocks_aux"])
+    emit("random_access_blocks_sampled", nodes=180, encode_blocks=4,
+         phase_step=3, blocks=[int(x) for x in bdec.graph.prelude.blocks[0]],
+         wave_exact=got_w == want, csr_exact=got_c == want,
+         launches={"wave": counts_w, "csr": counts_c})
+    if not (got_w == want and got_c == want):
+        raise SystemExit("random access on the block-sampled artifact: "
+                         "lists differ from the input")
+    return {"decode_blocks": wave_cmp,
+            "decode_emit": {"bit_equal": all(r["bit_equal"]
+                                             for r in emit_cmp),
+                            "max_abs_err": max(r["max_abs_err"]
+                                               for r in emit_cmp)}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -413,15 +811,15 @@ def main() -> int:
              ans_bytes=os.path.getsize(os.path.join(tmp, "cnr.ans")))
 
         # ---- 3. token kernel vs plain on small seeded random graphs, one
-        # per grammar variant (window 0, no intervals, the widest ring,
-        # phase-sampled entry points) ----
+        # per grammar variant (window 0, no intervals, the merged-emit
+        # kernel's widest ring, a wider one, phase-sampled entry points) ----
         rng = np.random.default_rng(2026)
         lists = [sorted(rng.choice(2000, size=int(rng.integers(0, 24)),
                                    replace=False).tolist())
                  for _ in range(2000)]
         adj_small = Adjacency.from_lists(lists)
         small, small_decs = [], []
-        for name, w, r, mi, step in SMALL_CONFIGS:
+        for name, w, r, mi, step in SMALL_CONFIGS + BLOCKS_ONLY_CONFIGS:
             res = compress_adjacency(adj_small, w, r, mi)
             sdec = TorchGraphDecoder(sampled_graph(ANSBvGraph, res, step),
                                      device=cuda)
@@ -667,9 +1065,10 @@ def main() -> int:
              steady_device_ms=t_steady, steady_eager_seconds=eager_s,
              steady_eager_device_ms=t_eager, post_steady_ms=t_post,
              host_planner_seconds=host_s, launches=cold_launches,
-             steady_launches=steady_launches)
+             steady_launches=steady_launches,
+             emit_broken=epl.get("emit_broken"))
         if not (all(c["exact"] for c in cold) and steady_exact
-                and cold[-1]["verified"]):
+                and cold[-1]["verified"] and not epl.get("emit_broken")):
             raise SystemExit("merged emit: end-to-end adjacency is not "
                              "exact, or the plan never verified")
         if (path_launches["decode_emit"] < 1
@@ -865,16 +1264,25 @@ def main() -> int:
             raise SystemExit("block artifact: a decode path is not exact, "
                              "or the merged-emit plan never verified")
 
+        # ---- 15-19. the sort path, its fallbacks and random access ----
+        runs = PathRuns()
+        sort_path_phases(g, adj, edec, runs)
+        ra_cmp = random_access_phases(g, adj, edec, runs)
+
     if spills:
         raise SystemExit(f"kernel instances spill registers: {spills}")
 
-    # ---- 15. the kernels line ----
+    # ---- 20. the kernels line: launches summed over every path ----
     kernels = [{
         "name": "decode_blocks", "route": "cuda",
         "source": "webgraph_ans_torch/csrc/decode_blocks.cu",
         "replaces": "webgraph_ans_tpu/ops/decode_pallas.py:440",
-        "launches": launches, "bit_equal": cmp_cnr["bit_equal"],
-        "max_abs_err": cmp_cnr["max_abs_err"], "ms": t_k["median"],
+        "launches": launches + runs.total["decode_blocks"],
+        "bit_equal": (cmp_cnr["bit_equal"]
+                      and ra_cmp["decode_blocks"]["bit_equal"]),
+        "max_abs_err": max(cmp_cnr["max_abs_err"],
+                           ra_cmp["decode_blocks"]["max_abs_err"]),
+        "ms": t_k["median"],
         "plain_ms": plain_s * 1e3, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": None,
         "lanes": LANES, "ms_32768_lanes": t_w["median"],
@@ -882,7 +1290,8 @@ def main() -> int:
         "name": "decode_blocks_aux", "route": "cuda",
         "source": "webgraph_ans_torch/csrc/decode_blocks.cu",
         "replaces": "webgraph_ans_tpu/ops/decode_pallas.py:440",
-        "launches": path_launches["decode_blocks_aux"],
+        "launches": (path_launches["decode_blocks_aux"]
+                     + runs.total["decode_blocks_aux"]),
         "bit_equal": cmp_aux["bit_equal"],
         "max_abs_err": cmp_aux["max_abs_err"], "ms": t_aux["median"],
         "plain_ms": aplain_s * 1e3, "bound_ms": abound["bound_ms"],
@@ -892,9 +1301,12 @@ def main() -> int:
         "name": "decode_emit", "route": "cuda",
         "source": "webgraph_ans_torch/csrc/decode_emit.cu",
         "replaces": "webgraph_ans_tpu/ops/emit_pallas.py:501",
-        "launches": path_launches["decode_emit"],
-        "bit_equal": cmp_emit["bit_equal"],
-        "max_abs_err": cmp_emit["max_abs_err"], "ms": t_emit["median"],
+        "launches": path_launches["decode_emit"] + runs.total["decode_emit"],
+        "bit_equal": (cmp_emit["bit_equal"]
+                      and ra_cmp["decode_emit"]["bit_equal"]),
+        "max_abs_err": max(cmp_emit["max_abs_err"],
+                           ra_cmp["decode_emit"]["max_abs_err"]),
+        "ms": t_emit["median"],
         "plain_ms": eplain_s * 1e3, "bound_ms": ebound["bound_ms"],
         "bound_by": ebound["bound_by"], "library_ms": None,
         "lanes": len(epl["starts_np"]), **geometry,

@@ -10,6 +10,7 @@ and compared exactly (tolerance 0).
 """
 
 import dataclasses
+import logging
 
 import numpy as np
 import pytest
@@ -22,7 +23,8 @@ from webgraph_ans_tpu.bvgraph.store import compress_adjacency
 from webgraph_ans_tpu.bvgraph.synth import synth_web_graph
 from webgraph_ans_tpu.ops.graph_decode import TpuGraphDecoder
 from webgraph_ans_torch.bvgraph.random_access import ANSBvGraph as TorchGraph
-from webgraph_ans_torch.ops import emit_post, emit_torch, graph_decode
+from webgraph_ans_torch.ops import emit_cuda, emit_post, emit_torch, graph_decode
+from webgraph_ans_torch.ops.cuda_build import KernelError
 from webgraph_ans_torch.ops.graph_decode import TorchGraphDecoder
 import jax_native_build
 
@@ -222,27 +224,57 @@ def test_random_access_enters_at_block_start(artifacts):
         assert got == [lists[92], lists[136], lists[137]]
 
 
-def test_window_over_16_raises(tmp_path):
-    """The merged-emit kernel serves windows up to 16; a wider window
-    needs the sort path, which is not ported, and nothing falls back."""
+def test_window_over_16_raises(tmp_path, xla_decoder, caplog):
+    """The merged-emit kernel serves windows up to 16 and refuses a wider
+    one; decode_to_adjacency_device then falls back to the sort path, as
+    the reference does, and returns the JAX package's lists."""
+    lists = _rand_lists(60, 3, 6)
     base = str(tmp_path / "w20")
-    _save(base, compress_adjacency(
-        Adjacency.from_lists(_rand_lists(60, 3, 6)), 20, 3, 2), 1)
+    _save(base, compress_adjacency(Adjacency.from_lists(lists), 20, 3, 2), 1)
     dec = TorchGraphDecoder(TorchGraph.load(base), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        dec.decode_to_adjacency_device(LANES)
+    with pytest.raises(ValueError, match="window"):
+        emit_cuda._launch(dec.tables, torch.zeros((1, 1), dtype=torch.int32),
+                          torch.zeros(1, dtype=torch.int64), 20, 2, 8, 8,
+                          False)
+    with caplog.at_level(logging.WARNING, logger=graph_decode.__name__):
+        got = emit_post.to_host_lists(*dec.decode_to_adjacency_device(LANES),
+                                      60)
+    assert "window 20 > 16" in caplog.text
+    jax_lists = emit_post.to_host_lists(*(torch.from_numpy(np.array(a))
+                                          for a in TpuGraphDecoder(
+        JaxGraph.load(base)).decode_to_adjacency_device(LANES)), 60)
+    assert [x.tolist() for x in got] == [x.tolist() for x in jax_lists] \
+        == lists
 
 
-def test_postpass_error_propagates(artifacts, monkeypatch):
-    _, base = artifacts["serial"]
+def test_postpass_error_propagates(artifacts, monkeypatch, caplog):
+    """A post-pass RuntimeError falls back to the sort path (the lists
+    stay exact and the plan stays there), while a kernel's launch error
+    still propagates."""
+    adj, base = artifacts["serial"]
     dec = TorchGraphDecoder(TorchGraph.load(base), device="cpu")
+    real = emit_post.postprocess
 
     def broken(*args, **kw):
         raise RuntimeError("post-pass failure")
 
     monkeypatch.setattr(emit_post, "postprocess", broken)
-    with pytest.raises(RuntimeError, match="post-pass failure"):
+    with caplog.at_level(logging.WARNING, logger=graph_decode.__name__):
+        _assert_lists(adj, *dec.decode_to_adjacency_device(LANES))
+    assert "post-pass failure" in dec._plans[("emit", LANES)]["emit_broken"]
+    assert "sort-path reconstruction" in caplog.text
+    monkeypatch.setattr(emit_post, "postprocess", real)
+    _assert_lists(adj, *dec.decode_to_adjacency_device(LANES))
+
+    def launch_error(*args, **kw):
+        raise KernelError("decode_emit kernel launch (window 7, T 512) "
+                          "failed: invalid argument")
+
+    dec = TorchGraphDecoder(TorchGraph.load(base), device="cpu")
+    monkeypatch.setattr(graph_decode, "decode_emit", launch_error)
+    with pytest.raises(KernelError, match="launch"):
         dec.decode_to_adjacency_device(LANES)
+    assert not dec._plans[("emit", LANES)].get("emit_broken")
 
 
 def test_default_device_needs_cuda(artifacts, monkeypatch):

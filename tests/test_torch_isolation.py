@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from webgraph_ans_torch import ANSBvGraph, TorchGraphDecoder, reconstruct
+from webgraph_ans_torch import (ANSBvGraph, TorchCsrServer,
+                                TorchEmitRandomAccess, TorchGraphDecoder,
+                                TorchRandomAccess, reconstruct)
 from webgraph_ans_torch.bvgraph.graph import Adjacency
 from webgraph_ans_torch.bvgraph.store import compress_adjacency
 from webgraph_ans_torch.ops import cuda_build, decode_cuda, encode_cuda
@@ -37,6 +39,16 @@ g = ANSBvGraph(res.prelude, res.states, res.pointers)
 vals, comps = TorchGraphDecoder(g, device="cpu").decode_tokens(4)
 off, succs = reconstruct(vals, comps, g.num_nodes, 2, device="cpu")
 assert Adjacency(off, succs).to_lists() == lists
+dec = TorchGraphDecoder(g, device="cpu")
+off, succs, E = dec.decode_to_csr_device(4)
+assert Adjacency(off.numpy().astype(np.uint64),
+                 succs[:E].numpy().astype(np.uint32)).to_lists() == lists
+from webgraph_ans_torch import TorchCsrServer, TorchRandomAccess
+q = [5, 0, 5, 59]
+assert TorchRandomAccess(dec).successors_batch(q).to_lists() \
+    == [lists[x] for x in q]
+assert TorchCsrServer(dec, 4).successors_batch(q).to_lists() \
+    == [lists[x] for x in q]
 res = compress_adjacency(Adjacency.from_lists(lists), 7, 3, 2, encode_blocks=4,
                          use_tpu_model_search=True, device="cpu")
 from webgraph_ans_torch.bvgraph.sequential import ANSBvGraphSeq
@@ -74,6 +86,26 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
         reconstruct(vals, comps, g.num_nodes, 2)
     off, succs = reconstruct(vals, comps, g.num_nodes, 2, device="cpu")
     assert Adjacency(off, succs).to_lists() == lists
+
+
+def test_sort_path_and_random_access_need_cuda_or_explicit_cpu(
+        monkeypatch):
+    """The sort path and the three random-access classes run on their
+    decoder's device: without CUDA, only a decoder made with device="cpu"
+    serves them."""
+    g, lists = _small_graph()
+    dec = TorchGraphDecoder(g, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchGraphDecoder(g).decode_to_csr_device(2)
+    off, succs, E = dec.decode_to_csr_device(2)
+    assert off.device.type == "cpu" == succs.device.type
+    assert Adjacency(off.numpy().astype(np.uint64),
+                     succs[:E].numpy().astype(np.uint32)).to_lists() == lists
+    q = [2, 5, 2]
+    for cls in (TorchRandomAccess, TorchCsrServer, TorchEmitRandomAccess):
+        assert cls(dec).successors_batch(q).to_lists() == [lists[x]
+                                                           for x in q]
 
 
 def test_kernel_wrapper_dispatches_on_device_only():

@@ -121,6 +121,8 @@ extern "C" void run_blocks(const long long* params, const void* lut,
                            int window, int mi, int cap, int emit_aux,
                            void* out, void* counts, void* ok) {
   const CodecParams prm = codec_params(params);
+  std::vector<int> ring((window + 1) * kThreads);
+  g_ring = ring.data();
   blockDim.x = kThreads;
   auto kernel = emit_aux ? decode_blocks_kernel<true>
                          : decode_blocks_kernel<false>;
@@ -150,6 +152,11 @@ def _host_source(name: str, marker: str, driver: str) -> str:
         assert body.count(dyn) == 1
         body = body.replace(dyn, "int* smem = g_smem;")
         body = body.replace("namespace {", "int* g_smem;\nnamespace {", 1)
+    if name == "decode_blocks.cu":
+        dyn = "extern __shared__ int ring_s[];"
+        assert body.count(dyn) == 1
+        body = body.replace(dyn, "int* ring_s = g_ring;")
+        body = body.replace("namespace {", "int* g_ring;\nnamespace {", 1)
     return "#include <vector>\n" + body + "\n" + driver
 
 
@@ -195,6 +202,8 @@ CONFIGS = [("w7_r3_i2", 7, 3, 2, 1), ("w0_no_refs", 0, 0, 2, 1),
            ("no_intervals", 7, 3, 0, 1),
            ("w16_deep_refs", 16, 2_000_000_000, 4, 1),
            ("phase_step4", 7, 3, 2, 4)]
+# the token decode also serves the sort path's windows past 16
+BLOCKS_CONFIGS = CONFIGS + [("w20", 20, 3, 2, 1)]
 LANES = 24
 
 
@@ -213,7 +222,8 @@ def small_adj():
 
 
 @pytest.mark.parametrize("aux", [False, True], ids=["token", "aux"])
-@pytest.mark.parametrize("cfg", CONFIGS, ids=[c[0] for c in CONFIGS])
+@pytest.mark.parametrize("cfg", BLOCKS_CONFIGS,
+                         ids=[c[0] for c in BLOCKS_CONFIGS])
 def test_decode_blocks_host_build_matches_plain(host_libs, small_adj, cfg,
                                                 aux):
     dec = _decoder(small_adj, cfg)

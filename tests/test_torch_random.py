@@ -1,0 +1,286 @@
+"""The port's batch random access (ops/random_torch.py): TorchRandomAccess,
+TorchCsrServer and TorchEmitRandomAccess against the JAX package's
+counterparts on the same artifacts and queries (the shapes of
+tests/test_tpu_random.py and tests/test_emit_random.py), and their device
+gathers against the JAX functions on seeded arrays. Plain PyTorch on the
+CPU; the JAX side runs its XLA decoder (WGT_PALLAS=0) or, for the
+merged-emit kernel, the Pallas kernel in interpret mode. Integer outputs,
+compared exactly (tolerance 0)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from webgraph_ans_tpu.bvgraph.graph import Adjacency
+from webgraph_ans_tpu.bvgraph.random_access import ANSBvGraph as JaxGraph
+from webgraph_ans_tpu.bvgraph.store import compress_adjacency
+from webgraph_ans_tpu.bvgraph.synth import synth_web_graph
+from webgraph_ans_tpu.ops import random_tpu
+from webgraph_ans_tpu.ops.graph_decode import TpuGraphDecoder
+from webgraph_ans_torch.bvgraph.random_access import ANSBvGraph as TorchGraph
+from webgraph_ans_torch.ops import random_torch
+from webgraph_ans_torch.ops.graph_decode import TorchGraphDecoder
+from webgraph_ans_torch.ops.random_torch import (TorchCsrServer,
+                                                 TorchEmitRandomAccess,
+                                                 TorchRandomAccess)
+import jax_native_build
+
+# the JAX package's native library, built once before any test loads it
+jax_native_build.ensure()
+
+
+def _random(n, seed, dmax):
+    rng = np.random.default_rng(seed)
+    return [sorted(rng.choice(n, size=int(rng.integers(0, dmax)),
+                              replace=False).tolist()) for _ in range(n)]
+
+
+def _structured():
+    lists = []
+    for i in range(64):
+        if i % 4 in (0, 1):
+            lists.append(list(range(0, 32)))
+        elif i % 4 == 2:
+            lists.append([j for j in range(0, 32) if j % 3 != 0])
+        else:
+            lists.append([1, 5, 50, 63])
+    return lists
+
+
+def _sampled(res, step):
+    """(prelude, states, pointers) stored with phase_step=step."""
+    if step == 1:
+        return res.prelude, res.states, res.pointers
+    n = res.prelude.num_nodes
+    keep = (n - 1 - np.arange(0, n, step))[::-1]
+    return (dataclasses.replace(res.prelude, phase_step=step),
+            np.ascontiguousarray(res.states[keep]),
+            np.ascontiguousarray(res.pointers[keep]))
+
+
+# name -> (lists, (window, max_ref, min_interval), encode_blocks,
+# phase_step, queries)
+CASES = {
+    "dummy": ([[2, 3], [5], [], [], [0], []], (7, 3, 2), 1, 1,
+              [4, 0, 2, 0, 5]),
+    "structured": (_structured(), (7, 3, 4), 1, 1, [63, 3, 17, 17, 0, 62]),
+    "random": (_random(500, 9, 16), (7, 3, 2), 1, 1,
+               np.random.default_rng(9).integers(0, 500, size=200)),
+    "phase_sampled": (_random(400, 17, 12), (7, 3, 2), 1, 8,
+                      [0, 7, 8, 9, 133, 399, 250, 250, 31]),
+    # block-encoded and phase-sampled: the native random access is wrong
+    # here (nodes 92, 136, 137), so the input lists are the reference
+    "blocks4_sampled3": (_random(180, 17, 11), (7, 3, 2), 4, 3,
+                         [92, 136, 137, 0, 47, 48, 179, 136]),
+}
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    made = {}
+    for name, (lists, args, blocks, step, _) in CASES.items():
+        res = compress_adjacency(Adjacency.from_lists(lists), *args,
+                                 encode_blocks=blocks)
+        made[name] = _sampled(res, step)
+    return made
+
+
+@pytest.fixture()
+def xla_decoder(monkeypatch):
+    monkeypatch.setenv("WGT_PALLAS", "0")
+
+
+def _want(name):
+    lists, *_, queries = CASES[name]
+    return [lists[q] for q in queries]
+
+
+@pytest.mark.parametrize("name", ["dummy", "structured", "random",
+                                  "phase_sampled"])
+def test_wave_random_access_matches_jax(graphs, name, xla_decoder):
+    queries = CASES[name][-1]
+    jra = random_tpu.TpuRandomAccess(TpuGraphDecoder(JaxGraph(*graphs[name])))
+    tra = TorchRandomAccess(TorchGraphDecoder(TorchGraph(*graphs[name]),
+                                              device="cpu"))
+    got = tra.successors_batch(queries)
+    assert got.to_lists() == jra.successors_batch(queries).to_lists()
+    assert got.to_lists() == _want(name)
+
+
+@pytest.mark.parametrize("name", ["random", "phase_sampled"])
+def test_wave_halo_takes_the_chains_in_the_first_wave(graphs, name):
+    """With a halo of 4 * window nodes before each query, the first wave
+    holds every reference chain of max_ref 3 on the serial artifact, so
+    one wave serves the batch; the lists stay the input's."""
+    queries = CASES[name][-1]
+    ra = TorchRandomAccess(TorchGraphDecoder(TorchGraph(*graphs[name]),
+                                             device="cpu"))
+    assert ra.successors_batch(queries, halo=28).to_lists() == _want(name)
+    if name == "random":
+        assert len(ra.last_waves) == 1
+        ra.successors_batch(queries)
+        assert len(ra.last_waves) > 1
+
+
+@pytest.mark.parametrize("name", ["random", "dummy"])
+def test_csr_server_matches_jax(graphs, name, xla_decoder):
+    """The random graph's batch, and the dummy graph's empty rows and
+    repeats."""
+    queries = CASES[name][-1] if name == "random" else [5, 5, 0, 3, 3, 3, 1]
+    lanes = 16 if name == "random" else 4
+    jsrv = random_tpu.TpuCsrServer(TpuGraphDecoder(JaxGraph(*graphs[name])),
+                                   num_lanes=lanes)
+    tsrv = TorchCsrServer(TorchGraphDecoder(TorchGraph(*graphs[name]),
+                                            device="cpu"), num_lanes=lanes)
+    got = tsrv.successors_batch(queries)
+    assert got.to_lists() == jsrv.successors_batch(queries).to_lists()
+    lists = CASES[name][0]
+    assert got.to_lists() == [lists[q] for q in queries]
+    # the out_cap retry: a batch past 8 successors a query
+    out, out_off, total = tsrv.serve(queries, out_cap=16)
+    assert int(total) == int(out_off[-1]) == sum(len(lists[q])
+                                                  for q in queries)
+
+
+def test_block_sampled_artifact(graphs):
+    """Block-encoded and phase-sampled: the wave decode and the CSR server
+    return the input lists; the merged-emit random access refuses it, as
+    the reference does."""
+    g = graphs["blocks4_sampled3"]
+    want = _want("blocks4_sampled3")
+    queries = CASES["blocks4_sampled3"][-1]
+    dec = TorchGraphDecoder(TorchGraph(*g), device="cpu")
+    assert TorchRandomAccess(dec).successors_batch(queries).to_lists() == want
+    assert TorchCsrServer(dec, num_lanes=8).successors_batch(
+        queries).to_lists() == want
+    with pytest.raises(ValueError, match="serial artifact"):
+        TorchEmitRandomAccess(dec)
+    with pytest.raises(ValueError, match="serial artifact"):
+        random_tpu.TpuEmitRandomAccess(TpuGraphDecoder(JaxGraph(*g)))
+
+
+def test_gather_rows_matches_jax():
+    rng = np.random.default_rng(4)
+    degs = rng.integers(0, 9, size=300)
+    degs[::7] = 0                                   # empty rows
+    offsets = np.concatenate([[0], np.cumsum(degs)]).astype(np.int32)
+    succs = rng.integers(0, 1 << 30, size=int(offsets[-1]) + 11).astype(
+        np.int32)
+    q = rng.integers(0, 300, size=120).astype(np.int32)
+    for out_cap in (64, 1024):                      # overflowing, roomy
+        want = random_tpu.gather_rows(offsets, succs, q, out_cap)
+        got = random_torch.gather_rows(torch.from_numpy(offsets),
+                                       torch.from_numpy(succs),
+                                       torch.from_numpy(q), out_cap)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_gather_padded_matches_jax():
+    rng = np.random.default_rng(5)
+    n, G = 200, 16
+    degs = rng.integers(0, 7, size=n).astype(np.int32)
+    starts = rng.integers(0, 40 * G, size=n).astype(np.int32)
+    succs2d = rng.integers(0, 1 << 30, size=(48, G)).astype(np.int32)
+    qp = rng.integers(0, n, size=90).astype(np.int32)
+    qp[[3, 50, 89]] = -1                            # padding
+    for out_cap in (32, 512):
+        want = random_tpu._gather_padded(succs2d, starts, degs, qp, out_cap)
+        got = random_torch._gather_padded(
+            *(torch.from_numpy(a) for a in (succs2d, starts, degs, qp)),
+            out_cap)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.fixture(scope="module")
+def emit_graph():
+    """tests/test_emit_random.py's artifact."""
+    adj = synth_web_graph(400, seed=5)
+    res = compress_adjacency(adj)
+    return adj, (res.prelude, res.states, res.pointers)
+
+
+def test_emit_random_access_matches_jax(emit_graph, monkeypatch):
+    """Per-query lanes (a batch below the full-decode point), against the
+    JAX package's merged-emit kernel in interpret mode; then a batch past
+    that point, through the full merged-emit decode."""
+    monkeypatch.setenv("WGT_PALLAS", "interpret")
+    adj, g = emit_graph
+    lists = adj.to_lists()
+    jra = random_tpu.TpuEmitRandomAccess(TpuGraphDecoder(JaxGraph(*g)))
+    tra = TorchEmitRandomAccess(TorchGraphDecoder(TorchGraph(*g),
+                                                  device="cpu"))
+    rng = np.random.default_rng(3)
+    small = np.concatenate([rng.integers(0, adj.num_nodes, 8),
+                            [0, adj.num_nodes - 1, 7, 7]])
+    assert not tra._full_decode_cheaper(len(np.unique(small)))
+    got = tra.successors_batch(small).to_lists()
+    assert got == jra.successors_batch(small).to_lists()
+    assert got == [lists[q] for q in small]
+    big = rng.integers(0, adj.num_nodes, 40)
+    assert tra._full_decode_cheaper(len(np.unique(big)))
+    assert tra.successors_batch(big).to_lists() == [lists[q] for q in big]
+    assert tra.successors_batch([]).to_lists() == []
+
+
+def test_emit_random_access_sends_unclean_lanes_native(emit_graph,
+                                                       monkeypatch):
+    """Lanes the kernel leaves unresolved stay on the decoder's device:
+    lanes past the cap (here: every lane, at a cap too short for any
+    query) run again alone at twice the cap until they finish; lanes
+    dirty past the halo (a reference chain deeper than 4 * window) go to
+    the wave decode, up to max(64, B // 2) of them. The native per-node
+    decoder is never called."""
+    adj, g = emit_graph
+    lists = adj.to_lists()
+    tra = TorchEmitRandomAccess(TorchGraphDecoder(TorchGraph(*g),
+                                                  device="cpu"))
+    monkeypatch.setattr(tra.dec.graph, "successors_batch", None)
+    q = [5, 100, 101, 399]
+    assert tra.successors_batch(q, cap=8).to_lists() == [lists[x] for x in q]
+    rounds = tra.last_rounds
+    assert rounds[0]["cap"] == 8 and rounds[0]["over_cap"] == 4
+    assert [r["cap"] for r in rounds] == [8 << i for i in range(len(rounds))]
+    assert [r["T"] for r in rounds] == [max(8, r["cap"]) for r in rounds]
+    assert rounds[-1]["over_cap"] == 0 and tra.last_unclean == 0
+    assert all(r["queries"] == p["over_cap"]
+               for p, r in zip(rounds, rounds[1:]))
+
+    # window 1, at most 20 references a chain: node x copies node x - 1
+    # up to a root every 21 nodes, so nodes 5-20 past a root (x % 21 >= 5)
+    # hang on a chain deeper than the halo of 4
+    chain = [list(range(0, 90, 3))] * 400
+    res = compress_adjacency(Adjacency.from_lists(chain), 1, 20, 2)
+    cra = TorchEmitRandomAccess(TorchGraphDecoder(
+        TorchGraph(res.prelude, res.states, res.pointers), device="cpu"))
+    monkeypatch.setattr(cra.dec.graph, "successors_batch", None)
+    q = [3, 50, 60, 50, 399]
+    assert cra.successors_batch(q).to_lists() == [chain[x] for x in q]
+    assert cra.last_unclean == 2 and cra.last_rounds[0]["dirty"] == 2
+    deep = np.nonzero(np.arange(400) % 21 >= 5)[0][:70]
+    assert not cra._full_decode_cheaper(len(deep))
+    with pytest.raises(RuntimeError, match="70/70 lanes unresolved"):
+        cra.successors_batch(deep)
+
+
+def test_wave_cap_loop_is_bounded(graphs, monkeypatch):
+    dec = TorchGraphDecoder(TorchGraph(*graphs["random"]), device="cpu")
+    caps = []
+
+    def never_done(tables, states, *args):
+        cap = args[-1]
+        caps.append(cap)
+        L = states.shape[0]
+        return (torch.zeros((cap + cap // 8, L), dtype=torch.int32),
+                torch.zeros(L, dtype=torch.int32),
+                torch.zeros(L, dtype=torch.bool))
+
+    monkeypatch.setattr(random_torch, "decode_blocks", never_done)
+    with pytest.raises(RuntimeError, match="lane 0 has not finished"):
+        TorchRandomAccess(dec).successors_batch([3, 4])
+    bound = dec.step_bound("token")
+    assert len(caps) <= int(np.ceil(np.log2(bound / caps[0]))) + 1
+    assert caps[-1] >= bound

@@ -16,6 +16,10 @@ whose hot loops are CUDA kernels built for sm_90a on first use:
     # merged-emit path: decode and reconstruction in one kernel, on device
     succs2d, starts, degs = TorchGraphDecoder(g).decode_to_adjacency_device()
     offsets_d, succs_d = to_dense_csr(succs2d, starts, degs, g.num_arcs)
+    # sort path: aux-mode decode and the device reconstruction to a CSR
+    offsets_d, succs_d, E = TorchGraphDecoder(g).decode_to_csr_device()
+    # batch random access: wave decode, device CSR, per-query merged emit
+    lists = TorchRandomAccess(TorchGraphDecoder(g)).successors_batch([4, 0])
 
 Entry points run on CUDA unless given device="cpu" (the plain PyTorch
 versions of the kernels). The package imports neither jax nor
@@ -26,8 +30,11 @@ from .bvgraph.random_access import ANSBvGraph
 from .bvgraph.store import store
 from .ops.emit_post import to_dense_csr, to_host_lists
 from .ops.graph_decode import TorchGraphDecoder
+from .ops.random_torch import (TorchCsrServer, TorchEmitRandomAccess,
+                               TorchRandomAccess)
 from .ops.reconstruct_torch import reconstruct
 
-__all__ = ["ANSBvGraph", "TorchGraphDecoder", "reconstruct", "store",
+__all__ = ["ANSBvGraph", "TorchCsrServer", "TorchEmitRandomAccess",
+           "TorchGraphDecoder", "TorchRandomAccess", "reconstruct", "store",
            "to_dense_csr", "to_host_lists"]
 __version__ = "0.1.0"

@@ -32,8 +32,10 @@
 // enough warps for each sub-partition to hide the others' latency. The
 // codec parameters are read from shared memory at the lane's component,
 // each token's LUT row is requested a step ahead (lut_row), and the
-// window's outdegree ring lives in shared memory (17 ints a lane), not in
-// a runtime-indexed local array.
+// window's outdegree ring lives in dynamic shared memory (window + 1 ints
+// a lane, so any window up to kMaxBlocksWindow, the sort path's windows
+// past the merged-emit kernel's 16 among them), not in a runtime-indexed
+// local array.
 
 #include "ans_fsm.cuh"
 
@@ -41,7 +43,9 @@ namespace {
 
 using namespace wgt;
 
-constexpr int kMaxRing = kMaxWindow + 1;
+// the ring of a block's lanes fits the 48 KB of dynamic shared memory a
+// launch gets without an opt-in
+constexpr int kMaxBlocksWindow = 4095;
 constexpr int kThreads = 1;
 
 // Outdegree ring with a runtime window (slot node % R), one column of the
@@ -68,7 +72,7 @@ __global__ void __launch_bounds__(kThreads) decode_blocks_kernel(
     int cap, uint32_t* __restrict__ out, int* __restrict__ counts,
     uint8_t* __restrict__ ok) {
   __shared__ CodecParams sp;
-  __shared__ int ring_s[kMaxRing * kThreads];
+  extern __shared__ int ring_s[];   // [window + 1, kThreads]
   stage_params(prm, sp);
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= L) return;
@@ -197,15 +201,18 @@ extern "C" int wgt_decode_blocks(
     const void* starts, const void* ends, const void* ring_seed, int L,
     int window, int min_interval, int cap, int emit_aux, void* out,
     void* counts, void* ok, void* cuda_stream) {
-  if (window < 0 || window > kMaxWindow || cap % 8 != 0 || stream_len < 1 ||
-      params[45] < 1)
+  if (window < 0 || window > kMaxBlocksWindow || cap % 8 != 0 ||
+      stream_len < 1 || params[45] < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const CodecParams prm = codec_params(params);
   if (L > 0) {
     const dim3 grid((L + kThreads - 1) / kThreads);
     auto kernel = emit_aux ? decode_blocks_kernel<true>
                            : decode_blocks_kernel<false>;
-    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
+    const size_t ring_bytes =
+        static_cast<size_t>(window + 1) * kThreads * sizeof(int);
+    kernel<<<grid, kThreads, ring_bytes,
+             static_cast<cudaStream_t>(cuda_stream)>>>(
         prm, static_cast<const uint2*>(lut),
         static_cast<const uint16_t*>(stream), stream_len - 1,
         static_cast<const long long*>(states),

@@ -22,6 +22,12 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 
 
+class KernelError(RuntimeError):
+    """A CUDA kernel failed to build or to launch. Callers that fall back
+    to another path on an unsupported input let this propagate, so that a
+    fallback never hides a kernel."""
+
+
 def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -29,7 +35,7 @@ def nvcc() -> str:
     path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+        raise KernelError("nvcc not found: the CUDA kernels are built on "
                            "first use and need the CUDA toolkit")
     return path
 
@@ -85,7 +91,7 @@ def build_many(pairs, force: bool = False) -> list:
         results.append({"path": lib_path,
                         "seconds": time.perf_counter() - t0, "log": log})
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelError("\n".join(errors))
     return results
 
 

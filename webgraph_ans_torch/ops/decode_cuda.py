@@ -26,7 +26,7 @@ from .decode_torch import UNROLL, DecoderTables, decode_blocks_plain
 
 SOURCE = os.path.join(cuda_build.CSRC_DIR, "decode_blocks.cu")
 LIB_PATH = os.path.join(cuda_build.BUILD_DIR, "libdecode_blocks.so")
-MAX_WINDOW = 16           # the kernel's ring holds window + 1 <= 17 entries
+MAX_WINDOW = 4095   # the kernel's ring: window + 1 ints of shared memory
 
 _lock = threading.Lock()
 _lib = None
@@ -93,8 +93,9 @@ def _launch(tables: DecoderTables, states, ptrs, starts, ends, ring_seed,
         min_interval, cap, int(emit_aux), out.data_ptr(), counts.data_ptr(),
         ok.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError("decode_blocks kernel launch failed: "
-                           + lib.wgt_cuda_error_string(err).decode())
+        raise cuda_build.KernelError(
+            "decode_blocks kernel launch failed: "
+            + lib.wgt_cuda_error_string(err).decode())
     if emit_aux:
         decode_blocks.aux_launches += 1
     else:

@@ -409,7 +409,8 @@ def decode_blocks_plain(tables: DecoderTables, states, ptrs, starts, ends,
     return out, outn.to(torch.int32), ok
 
 
-def seed_rings(tables: DecoderTables, states, ptrs, starts, window: int):
+def seed_rings(tables: DecoderTables, states, ptrs, starts, window: int,
+               ctab=None):
     """Outdegree ring seeds for decode_blocks: for each lane, decodes the
     Outdegree token of each of the `window` nodes before its start, each
     entered at its own phase (reference:
@@ -418,23 +419,27 @@ def seed_rings(tables: DecoderTables, states, ptrs, starts, window: int):
     states/ptrs: [L, window] phases (absolute pointers) of nodes
     starts[l]-window .. starts[l]-1, clamped to node 0; entries before
     node 0 are ignored. Returns int32 [L, window+1] with outdegrees at
-    slots node % (window+1)."""
+    slots node % (window+1). ctab: the codec parameter table
+    (_comp_table) already on the device, for a caller recording a CUDA
+    graph, where no host copy may run."""
     L = states.shape[0]
     R = window + 1
     dev = states.device
-    ring = torch.zeros((L, R), dtype=torch.int64, device=dev)
     if window == 0:
-        return ring.to(torch.int32)
-    ctab = _comp_table(tables.params, dev)
-    ring_cols = torch.arange(R, device=dev)[None, :]
-    comp = torch.zeros(L, dtype=torch.int64, device=dev)   # OUTDEGREE
-    for j in range(window):
-        node = starts.long() - window + j
-        valid = node >= 0
-        v, _, _ = ans_decode_step(tables, ctab, states[:, j].long() & M32,
-                                  ptrs[:, j].long(), comp, valid)
-        ring = torch.where(valid[:, None] & (ring_cols == (node % R)[:, None]),
-                           v[:, None], ring)
+        return torch.zeros((L, 1), dtype=torch.int32, device=dev)
+    if ctab is None:
+        ctab = _comp_table(tables.params, dev)
+    # every (lane, pre-node) pair is one decode step, all in one call; the
+    # window's nodes are consecutive, so their slots mod R are distinct
+    node = starts.long()[:, None] - window + torch.arange(window, device=dev)
+    valid = node >= 0
+    comp = torch.zeros(L * window, dtype=torch.int64, device=dev)  # OUTDEGREE
+    v, _, _ = ans_decode_step(tables, ctab,
+                              states.reshape(-1).long() & M32,
+                              ptrs.reshape(-1).long(), comp,
+                              valid.reshape(-1))
+    ring = torch.zeros((L, R), dtype=torch.int64, device=dev)
+    ring.scatter_(1, node % R, torch.where(valid, v.view(L, window), 0))
     return _to_i32(ring)
 
 

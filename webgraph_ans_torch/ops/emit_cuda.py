@@ -61,8 +61,18 @@ def _load() -> ctypes.CDLL:
 
 
 def _error(lib, err: int, what: str):
-    raise RuntimeError(f"decode_emit {what} failed: "
-                       + lib.wgt_emit_error_string(err).decode())
+    raise cuda_build.KernelError(f"decode_emit {what} failed: "
+                                 + lib.wgt_emit_error_string(err).decode())
+
+
+def _geometry(window: int, T: int):
+    """(error code, lanes per block, dynamic shared memory bytes) of the
+    kernel's launch shape on the current card."""
+    lib = _load()
+    lanes, smem = ctypes.c_int(), ctypes.c_longlong()
+    err = lib.wgt_decode_emit_geometry(window, T, ctypes.byref(lanes),
+                                       ctypes.byref(smem))
+    return err, lanes.value, smem.value
 
 
 def launch_geometry(window: int, T: int) -> dict:
@@ -70,13 +80,18 @@ def launch_geometry(window: int, T: int) -> dict:
     depth: lanes (threads) per block and the dynamic shared memory each
     block asks for (the T-row ring, the queues and the window rings of
     each lane). Raises when not even one lane's ring fits a block."""
-    lib = _load()
-    lanes, smem = ctypes.c_int(), ctypes.c_longlong()
-    err = lib.wgt_decode_emit_geometry(window, T, ctypes.byref(lanes),
-                                       ctypes.byref(smem))
+    err, lanes, smem = _geometry(window, T)
     if err != 0:
-        _error(lib, err, f"launch shape (window {window}, T {T})")
-    return {"lanes_per_block": lanes.value, "smem_bytes": smem.value}
+        _error(_load(), err, f"launch shape (window {window}, T {T})")
+    return {"lanes_per_block": lanes, "smem_bytes": smem}
+
+
+def ring_fits(window: int, T: int) -> bool:
+    """Whether one lane's T-row ring, queues and window rings fit a
+    block's shared memory on the current card (window in 0..16, T a power
+    of two >= 8): False is a plan the kernel cannot serve. A failed build
+    raises."""
+    return _geometry(window, T)[0] == 0
 
 
 def _launch(tables: DecoderTables, regs, ptrs, window: int,

@@ -36,7 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .reconstruct_device import _cumsum_tok, _quant, unpack_nibbles
+from .reconstruct_device import (_cumsum, _cumsum_tok, _quant, _sort2,
+                                 unpack_nibbles)
 
 I32 = torch.int32
 UNROLL = 8
@@ -59,18 +60,6 @@ def _set_drop(x: torch.Tensor, idx: torch.Tensor, v: torch.Tensor):
     ext = torch.cat([x, x.new_zeros(1)])
     ext[torch.clamp(idx.long(), 0, n)] = v.to(x.dtype)
     return ext[:n]
-
-
-def _cumsum(x: torch.Tensor) -> torch.Tensor:
-    return torch.cumsum(x, 0, dtype=torch.int64).to(I32)
-
-
-def _sort2(k1: torch.Tensor, k2: torch.Tensor):
-    """Sorts pairs (k1, k2) of int32 keys lexicographically as one int64
-    sort of k1 << 32 | (k2 + 2^31). Returns the sorted (k1, k2)."""
-    key = (k1.long() << 32) + (k2.long() + (1 << 31))
-    s = torch.sort(key).values
-    return (s >> 32).to(I32), ((s & 0xFFFFFFFF) - (1 << 31)).to(I32)
 
 
 def extract_node_tables(val, xch, nib, lane_of, n: int) -> dict:

@@ -82,22 +82,31 @@ def _layout(window: int):
     return degring, basering, dirtyring, qc0, qi0, qr0, qn0, nreg
 
 
+def _lane_array(x, dev) -> torch.Tensor:
+    """A per-lane integer array (host array or tensor) as int64 on dev; a
+    tensor already there is not copied through the host."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, torch.int64)
+    return torch.as_tensor(np.asarray(x, np.int64)).to(dev)
+
+
 def emit_init_regs(states, starts, ends, ring, window: int,
                    real_starts=None) -> torch.Tensor:
     """Initial register file [nreg, L] int32 for decode_emit (the rows of
     emit_pallas.emit_init_regs_core, lane-major). states: u32 entry states
     (any integer dtype); starts/ends: lane node ranges (starts may reach
     back into a halo before real_starts, the first node the lane marks);
-    ring [L, window+1] the outdegree ring seed. The stream pointers are
-    passed to decode_emit separately."""
+    ring [L, window+1] the outdegree ring seed. The lane arrays may be
+    host arrays or tensors; tensors on ring's device are used there, with
+    no host synchronisation. The stream pointers are passed to
+    decode_emit separately."""
     R = window + 1
     dev = ring.device
     L = ring.shape[0]
     nreg = _layout(window)[-1]
-    starts = torch.as_tensor(np.asarray(starts, np.int64)).to(dev)
-    ends = torch.as_tensor(np.asarray(ends, np.int64)).to(dev)
-    real = starts if real_starts is None else torch.as_tensor(
-        np.asarray(real_starts, np.int64)).to(dev)
+    starts = _lane_array(starts, dev)
+    ends = _lane_array(ends, dev)
+    real = starts if real_starts is None else _lane_array(real_starts, dev)
     regs = torch.zeros((nreg, L), dtype=torch.int32, device=dev)
     regs[D_STATE] = _to_i32(torch.as_tensor(states).to(dev).long())
     regs[D_LEFT] = (ends - starts).to(torch.int32)

@@ -80,8 +80,9 @@ def launch_geometry(L: int, T: int, cap: int, max_folds: int) -> dict:
 
 def _check_err(lib, err: int, what: str):
     if err != 0:
-        raise RuntimeError(f"encode_blocks {what} launch failed: "
-                           + lib.wgt_encode_error_string(err).decode())
+        raise cuda_build.KernelError(
+            f"encode_blocks {what} launch failed: "
+            + lib.wgt_encode_error_string(err).decode())
 
 
 def records(params, tab, tokens, emit, cap: int):

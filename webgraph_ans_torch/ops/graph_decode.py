@@ -1,8 +1,10 @@
 """Host orchestration of the lane-parallel decoders: partition a graph's
 nodes into contiguous blocks (one per lane), enter the stream at each
 block's phase, seed the outdegree rings, and run the token-decode kernel
-(decode_tokens) or the merged-emit kernel and its post-pass
-(decode_to_adjacency_device).
+(decode_tokens; in aux mode with the device sort-path reconstruction,
+decode_to_csr_device) or the merged-emit kernel and its post-pass
+(decode_to_adjacency_device, which falls back to the sort path on what
+the merged-emit kernel cannot serve).
 
 The device-parallel replacement for the serial sequential scan
 (reference: src/bvgraph/sequential.rs + src/ans/decoder.rs): same stream,
@@ -12,18 +14,62 @@ absolute 64-bit word indices, so a lane may span any part of the stream.
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 
 from ..bvgraph.random_access import ANSBvGraph
-from . import emit_post
+from . import emit_cuda, emit_post
+from .cuda_build import KernelError
 from .decode_cuda import decode_blocks
 from .decode_torch import (UNROLL, build_decoder_tables_np,
                            fetch_block_tokens, resolve_device, round_cap,
                            seed_rings, tables_from_numpy)
 from .emit_cuda import decode_emit
 from .emit_torch import MAX_WINDOW, emit_init_regs
-from .reconstruct_device import parse_stats
+from .reconstruct_device import parse_stats, reconstruct_device
+
+log = logging.getLogger(__name__)
+
+
+class EmitPlanUnsupported(RuntimeError):
+    """The merged-emit kernel cannot serve this plan on this device."""
+
+
+def _device_fault(e: BaseException) -> bool:
+    """A kernel's build or launch failure, or an error of the device
+    itself: never a reason to fall back to another path."""
+    faults = (KernelError, torch.OutOfMemoryError,
+              getattr(torch, "AcceleratorError", KernelError))
+    return isinstance(e, faults)
+
+
+def _grow_cap(run, ok: torch.Tensor, cap: int, bound: int,
+              what: str) -> int:
+    """The cap at which every lane of a doubling loop finishes, given the
+    ok flags [L] of a launch of all lanes at `cap`. Relaunches only the
+    lanes that did not finish, run(idx, cap) -> their ok flags, at twice
+    the cap each time, so that the memory of a growing launch follows the
+    unfinished lanes. Raises RuntimeError naming the first such lane once
+    the cap has reached `bound`, which no valid lane can exceed."""
+    idx = torch.nonzero(~ok).flatten()
+    while idx.numel():
+        if cap >= bound:
+            raise RuntimeError(
+                f"{what}: lane {int(idx[0])} has not finished at cap {cap}, "
+                f"past the {bound} steps that any lane of this graph can "
+                "need; the artifact is corrupt")
+        cap *= 2
+        idx = idx[~run(idx, cap)]
+    return cap
+
+
+def _all_done(ok: torch.Tensor, cap: int, what: str):
+    """The check of the full launch at the grown cap."""
+    if not bool(ok.all()):
+        raise RuntimeError(f"{what}: lanes that finished alone at cap {cap} "
+                           "did not finish in the full launch")
 
 
 class TorchGraphDecoder:
@@ -261,14 +307,35 @@ class TorchGraphDecoder:
             ring[rows[valid], (pre % R)[valid]] = deg_arr[valid]
         return ring
 
+    def step_bound(self, mode: str = "token") -> int:
+        """The most steps a valid lane of this graph can take, in `mode`
+        "token", "aux" or "emit"; the cap-doubling loops raise past it.
+        No lane decodes more tokens than the whole graph holds: a node
+        has at most 5 + d_ref + 3d tokens (outdegree, reference, block
+        count, at most d_ref + 1 blocks, interval count, two tokens an
+        interval and one a residual, at most d of each), and a node is
+        referenced by at most `window` later ones, so the graph holds at
+        most 5n + (window + 3)m tokens. Aux mode adds one summary step a
+        node. A merged-emit step decodes a token or emits a row (an
+        element or a node's marker); its bound is twice that count."""
+        n, m = self.num_nodes, self.num_arcs
+        tokens = 5 * n + (self.window + 3) * m
+        if mode == "aux":
+            return tokens + n
+        if mode == "emit":
+            return 2 * (tokens + m + n)
+        return tokens
+
     def decode_raw(self, num_lanes: int = 256, cap: int | None = None,
                    emit_aux: bool = False):
         """Lane-parallel token decode of the whole graph; returns the raw
         device output (out, counts, cap) of decode_blocks (layout:
-        ops/decode_torch.py). Reads the ok flags back and doubles the cap
-        until every lane fits. emit_aux=True decodes in aux mode; its cap
-        covers tokens plus one summary step per node and is kept in the
-        plan apart from the token cap."""
+        ops/decode_torch.py). Reads the ok flags back; when a lane did not
+        fit, doubles the cap for the unfinished lanes alone (raising once
+        it passes step_bound), then decodes every lane at that cap.
+        emit_aux=True decodes in aux mode; its cap covers tokens plus one
+        summary step per node and is kept in the plan apart from the
+        token cap."""
         pl = self.plan(num_lanes)
         auto = cap is None
         capkey = "cap_aux" if emit_aux else "cap"
@@ -276,14 +343,25 @@ class TorchGraphDecoder:
             nodes_max = int(np.max(pl["ends_np"] - pl["starts_np"]))
             pl["cap_aux"] = round_cap(self.params, pl["cap"] + nodes_max)
         cap = pl[capkey] if auto else round_cap(self.params, cap)
-        while True:
+        lane_args = [pl[k] for k in ("states", "ptrs", "starts", "ends",
+                                     "ring")]
+
+        def run(idx, c):
+            return decode_blocks(self.tables, *(a[idx] for a in lane_args),
+                                 self.window, self.min_interval, c,
+                                 emit_aux=emit_aux)[2]
+
+        out, counts, ok = decode_blocks(
+            self.tables, *lane_args, self.window, self.min_interval, cap,
+            emit_aux=emit_aux)
+        if not bool(ok.all()):
+            cap = _grow_cap(run, ok, cap,
+                            self.step_bound("aux" if emit_aux else "token"),
+                            "decode_blocks")
             out, counts, ok = decode_blocks(
-                self.tables, pl["states"], pl["ptrs"], pl["starts"],
-                pl["ends"], pl["ring"], self.window, self.min_interval, cap,
+                self.tables, *lane_args, self.window, self.min_interval, cap,
                 emit_aux=emit_aux)
-            if bool(ok.all()):
-                break
-            cap *= 2
+            _all_done(ok, cap, "decode_blocks")
         if auto:
             pl[capkey] = cap   # remember a successful (possibly grown) cap
         return out, counts, cap
@@ -310,6 +388,23 @@ class TorchGraphDecoder:
         comps u8) concatenated in forward node order (host arrays)."""
         out, counts, cap = self.decode_raw(num_lanes, cap)
         return fetch_block_tokens(out, counts, cap)
+
+    def decode_to_csr_device(self, num_lanes: int = 2048,
+                             cap: int | None = None):
+        """Full decode on the device by the sort path: the aux-mode token
+        decode and the device reconstruction, with no host copy of the
+        tokens. Returns (offsets [n+1] int32, succs [Epad] int32, E) on
+        the decoder's device; the successor lists are succs[:E]. The
+        first call tightens the aux cap with one observation decode; the
+        plan caches the reconstruction's meta vector, so later calls
+        fetch it only to verify it."""
+        pl = self.plan(num_lanes)
+        if cap is None and not pl.get("tight_aux"):
+            self.tighten_cap(num_lanes, emit_aux=True)
+            pl["tight_aux"] = True
+        out, _, cap = self.decode_raw(num_lanes, cap, emit_aux=True)
+        return reconstruct_device(out, self.num_nodes, self.num_arcs, cap,
+                                  pl.setdefault("recon_meta", {}))
 
     # ------------------------------------------------------------------
     # Merged-emit pipeline: decode and reconstruction in one kernel
@@ -525,33 +620,51 @@ class TorchGraphDecoder:
         safe[1:] = sm[1:] >= np.arange(1, n)
         return safe
 
+    def _emit_servable(self, T: int) -> bool:
+        """Whether the merged-emit kernel can run a plan with a T-row ring
+        on the decoder's device: on CUDA one lane's ring, queues and
+        window rings must fit a block's shared memory."""
+        if self.device.type != "cuda":
+            return True
+        return emit_cuda.ring_fits(self.window, T)
+
     def decode_emit_raw(self, num_lanes: int = 2048, cap: int | None = None,
                         check: bool = True):
         """Merged-emit kernel decode: returns (val, xch, nib, cap), the
         device channels of ops/emit_post.py. check=True reads the lanes'
-        done flags back, doubles the cap until every lane finishes, and
-        then keeps the observed rows and the tight cap in the plan;
-        check=False issues no host synchronisation."""
+        done flags back; when a lane did not finish, doubles the cap for
+        the unfinished lanes alone (raising once it passes step_bound) and
+        decodes every lane at that cap; it then keeps the observed rows
+        and the tight cap in the plan; check=False issues no host
+        synchronisation. Raises EmitPlanUnsupported for a plan the kernel
+        cannot serve."""
         pl = self._emit_plan(num_lanes)
+        if not self._emit_servable(pl["T"]):
+            raise EmitPlanUnsupported(
+                f"a lane's ring of T={pl['T']} rows (window {self.window}) "
+                "does not fit a block's shared memory")
         auto = cap is None
         cap = pl["cap"] if auto else -(-cap // UNROLL) * UNROLL
-        while True:
-            val, xch, nib, rows, ok, _ = decode_emit(
-                self.tables, pl["regs"], pl["ptrs"], self.window,
-                self.min_interval, cap, T=pl["T"])
-            if not check:
-                break
-            if bool(ok.all()):
-                rows_np = rows.cpu().numpy()
-                pl["rows_np"] = rows_np
-                if auto:
-                    # the true step need: later calls run a tight cap
-                    pl["cap"] = -(-max(int(rows_np.max()), UNROLL)
-                                  // UNROLL) * UNROLL
-                break
-            cap *= 2
-            if auto:
-                pl["cap"] = cap
+
+        def launch(regs, ptrs, c):
+            return decode_emit(self.tables, regs, ptrs, self.window,
+                               self.min_interval, c, T=pl["T"])
+
+        val, xch, nib, rows, ok, _ = launch(pl["regs"], pl["ptrs"], cap)
+        if not check:
+            return val, xch, nib, cap
+        if not bool(ok.all()):
+            cap = _grow_cap(
+                lambda idx, c: launch(pl["regs"][:, idx], pl["ptrs"][idx],
+                                      c)[4],
+                ok, cap, self.step_bound("emit"), "decode_emit")
+            val, xch, nib, rows, ok, _ = launch(pl["regs"], pl["ptrs"], cap)
+            _all_done(ok, cap, "decode_emit")
+        rows_np = rows.cpu().numpy()
+        pl["rows_np"] = rows_np
+        if auto:
+            # the true step need: later calls run a tight cap
+            pl["cap"] = -(-max(int(rows_np.max()), UNROLL) // UNROLL) * UNROLL
         return val, xch, nib, cap
 
     def _steady(self, pl: dict):
@@ -599,35 +712,61 @@ class TorchGraphDecoder:
         bounds and refines them once on the observed rows; the plan is
         then verified, and later calls run the kernel (mark_deg mode) and
         the cached-layout post-pass with no host synchronisation; on CUDA
-        as one CUDA graph (_steady_graph)."""
-        if self.window > MAX_WINDOW:
-            raise NotImplementedError(
-                f"window {self.window} > {MAX_WINDOW}: the merged-emit "
-                "kernel serves windows up to 16; larger windows need the "
-                "sort-path reconstruction (ROADMAP module item 4, not "
-                "ported)")
+        as one CUDA graph (_steady_graph).
+
+        What the merged-emit kernel cannot serve goes to the sort path
+        (_adjacency_via_sort_path) on the same device, with a warning that
+        names the cause, and stays there: a window past 16, a plan the
+        kernel cannot run (EmitPlanUnsupported), or a post-pass
+        RuntimeError (dirty chains deeper than its fixup bound, as on
+        high-compression artifacts without safe breaks). When the
+        reference-safe boundaries cannot be computed, the rebalanced plan
+        keeps the halo re-decode instead. A kernel's build or launch
+        failure and a device error are no such cause: they propagate."""
         pl0 = self._plans.setdefault(("emit", num_lanes), {})
+        if not pl0.get("emit_broken") and self.window > MAX_WINDOW:
+            self._emit_broken(pl0, f"window {self.window} > {MAX_WINDOW}")
+        if pl0.get("emit_broken"):
+            return self._adjacency_via_sort_path(num_lanes)
         mc0 = pl0.get("post_meta") or {}
         if pl0.get("verified") and "fx_offs" in mc0:
             if pl0["regs"].device.type == "cuda":
                 return self._steady_graph(pl0)
             return self._steady(pl0)
-        val, xch, nib, _ = self.decode_emit_raw(
-            num_lanes, check=not pl0.get("verified"))
+        try:
+            val, xch, nib, _ = self.decode_emit_raw(
+                num_lanes, check=not pl0.get("verified"))
+        except EmitPlanUnsupported as e:
+            self._emit_broken(pl0, f"merged-emit kernel unavailable ({e})")
+            return self._adjacency_via_sort_path(num_lanes)
         pl = self._plans[("emit", num_lanes)]
         if "lane_of" not in pl:
             lens = pl["ends_np"] - pl["starts_np"]
             pl["lane_of"] = np.repeat(np.arange(len(lens), dtype=np.int32),
                                       lens)
-        succs2d, starts_flat, degs, _ = emit_post.postprocess(
-            val, xch, nib, pl["lane_of"], pl["starts_np"], self.num_nodes,
-            meta_cache=pl.setdefault("post_meta", {}))
+        try:
+            succs2d, starts_flat, degs, _ = emit_post.postprocess(
+                val, xch, nib, pl["lane_of"], pl["starts_np"],
+                self.num_nodes, meta_cache=pl.setdefault("post_meta", {}))
+        except RuntimeError as e:
+            if _device_fault(e):
+                raise
+            self._emit_broken(pl0, f"merged-emit post-pass unsupported for "
+                                   f"this artifact ({e})")
+            return self._adjacency_via_sort_path(num_lanes)
         if "degs_np" not in pl and "bounds" not in pl:
             # cache degrees and rebalance the lane split once, onto
             # element-balanced bounds at reference-safe nodes (no chain
             # crosses a boundary: no cross-lane dirty nodes, no halo)
             pl["degs_np"] = degs.cpu().numpy()
-            pl["safe_np"] = self._safe_boundaries()
+            try:
+                pl["safe_np"] = self._safe_boundaries()
+            except (RuntimeError, ValueError) as e:
+                if _device_fault(e):
+                    raise
+                log.warning("safe-boundary computation failed (%r); "
+                            "falling back to the halo re-decode", e)
+                pl["safe_np"] = None    # correct without it
             for k in ("regs", "cap", "post_meta", "lane_of"):
                 pl.pop(k, None)
         elif "node_work" not in pl and "rows_np" in pl:
@@ -652,3 +791,16 @@ class TorchGraphDecoder:
         elif not pl.get("verified"):
             pl["verified"] = True
         return succs2d, starts_flat, degs
+
+    @staticmethod
+    def _emit_broken(pl0: dict, cause: str):
+        log.warning("%s; using the sort-path reconstruction", cause)
+        pl0["emit_broken"] = cause
+
+    def _adjacency_via_sort_path(self, num_lanes: int):
+        """The sort-path reconstruction (decode_to_csr_device) in the
+        padded-adjacency contract of decode_to_adjacency_device, in the
+        one-lane layout (G = 1: a flat index is the CSR index)."""
+        offsets, succs, _ = self.decode_to_csr_device(num_lanes=num_lanes)
+        return (succs.reshape(-1, 1), offsets[:-1].contiguous(),
+                offsets[1:] - offsets[:-1])
