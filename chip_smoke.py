@@ -30,10 +30,19 @@ and batch random access on cnr-2000 (wave decode, the device CSR server,
 per-query merged-emit lanes, with their reruns at larger caps, and the
 full-decode route) and on a block-encoded, phase-sampled artifact, each
 checked list for list, with the token and merged-emit kernels held
-against their plain versions at the shapes random access gives them. Each
+against their plain versions at the shapes random access gives them.
+Then scale-out on the one card: the sharded token decode over four
+entries of cuda:0 (serial and 512-block artifacts) and the sharded
+merged emit (a fresh plan and the verified one), each bit for bit the
+single-device call's, with one shard's kernel launch held against its
+plain version; the launcher (python -m webgraph_ans_torch.launch) at four
+ranks over gloo on the card, on the serial and the high-compression
+artifact, and at one rank over NCCL on both, each rank's shard gathered
+in node order and checked against the input; and dryrun_multichip(4). Each
 phase prints one JSON line; any failure raises and exits non-zero. The
 line before the last lists the kernels, with their launches summed over
-every path; the last line is the device record. Exits 1 without printing
+every path (the launcher's ranks report their own); the last line is the
+device record. Exits 1 without printing
 a result when CUDA is not available.
 """
 
@@ -44,6 +53,8 @@ import json
 import logging
 import os
 import re
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -61,6 +72,9 @@ EMIT_LANES = 2048
 WIDE_EMIT_LANES = 4096
 SMALL_LANES = 64
 TIMED_RUNS = 20
+SHARDS = 4      # device entries of the sharded paths, all on DEVICE
+RANKS = 4       # launcher ranks on the one card (gloo)
+DEVICE = "cuda:0"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and 32-bit integer ALU
 # operations/s (the fp32 pipe's 67 TFLOP/s counts an FMA as two operations;
@@ -437,10 +451,12 @@ class Warnings(logging.Handler):
         self.messages.append(record.getMessage())
 
 
-def sort_path_phases(g, adj, edec, runs: PathRuns) -> None:
+def sort_path_phases(g, adj, edec, runs: PathRuns, hc_base: str) -> None:
     """Phases 15-17: the sort path on cnr-2000 (serial and
-    high-compression) and the fallbacks of decode_to_adjacency_device."""
+    high-compression) and the fallbacks of decode_to_adjacency_device.
+    The high-compression artifact is also written to hc_base."""
     from webgraph_ans_torch import ANSBvGraph, TorchGraphDecoder
+    from webgraph_ans_torch.ans.prelude import save_pointers, save_states
     from webgraph_ans_torch.bvgraph.graph import Adjacency
     from webgraph_ans_torch.bvgraph.store import compress_adjacency
     from webgraph_ans_torch.ops import graph_decode
@@ -488,6 +504,9 @@ def sort_path_phases(g, adj, edec, runs: PathRuns) -> None:
     # reference chains, no safe breaks): the deep rounds ----
     res_hc, store_s = timed(
         lambda: compress_adjacency(adj, 16, 2_000_000_000, 4))
+    res_hc.prelude.save(hc_base)
+    save_states(hc_base, res_hc.states)
+    save_pointers(hc_base, res_hc.pointers)
     hdec = TorchGraphDecoder(ANSBvGraph(res_hc.prelude, res_hc.states,
                                         res_hc.pointers))
     (res, hc_cold_s), counts = runs(
@@ -756,13 +775,236 @@ def random_access_phases(g, adj, edec, runs: PathRuns) -> dict:
                                                for r in emit_cmp)}}
 
 
+def run_launcher(args: list, timeout: float):
+    """python -m webgraph_ans_torch.launch with `args`, in a process group
+    of its own that its ranks join: fails on a nonzero exit, kills the
+    whole group at the timeout, and leaves no rank behind. Returns (the
+    ranks' reports by rank, the gather's line or None, host seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "webgraph_ans_torch.launch", *args], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SystemExit(f"launcher still running after {timeout} s: {args}")
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"launcher exited with {proc.returncode} ({args}):\n"
+                         f"{err[-4000:]}")
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    reports = sorted((x for x in lines if "process" in x),
+                     key=lambda r: r["process"])
+    gathered = [x for x in lines if "gathered" in x]
+    return reports, (gathered[0] if gathered else None), seconds
+
+
+def adjacency_exact(res3, adj) -> bool:
+    """The merged-emit contract's (succs2d, starts_flat, degs) equals the
+    input graph, through to_dense_csr."""
+    from webgraph_ans_torch import to_dense_csr
+    from webgraph_ans_torch.ops.reconstruct_device import _quant
+
+    n, arcs = adj.num_nodes, adj.num_arcs
+    offs_d, succs_d = to_dense_csr(*res3, _quant(arcs))
+    host = torch.cat([offs_d[:n + 1], succs_d[:arcs]]).cpu().numpy()
+    return (np.array_equal(host[:n + 1].astype(np.int64),
+                           adj.offsets.astype(np.int64))
+            and np.array_equal(host[n + 1:].astype(np.uint32), adj.succs))
+
+
+def scale_out_phases(g, gb, adj, edec, runs: PathRuns, tmp: str,
+                     hc_base: str) -> dict:
+    """Phases 20-25: scale-out on the card. The sharded token decode over
+    SHARDS entries of cuda:0 on the serial and the 512-block artifact, the
+    sharded merged emit, the launcher's ranks over gloo on the one card
+    (serial and hc artifact) and one NCCL rank on each, all gathered and
+    checked,
+    and the dry run. Returns the comparisons of each kernel with its plain
+    version at one shard's shape."""
+    from webgraph_ans_torch import (ShardedGraphDecoder, TorchGraphDecoder,
+                                    reconstruct)
+    from webgraph_ans_torch.dryrun import dryrun_multichip
+    from webgraph_ans_torch.ops import decode_cuda, emit_cuda
+    from webgraph_ans_torch.ops.decode_torch import decode_blocks_plain
+    from webgraph_ans_torch.ops.emit_torch import decode_emit_plain
+    from webgraph_ans_torch.parallel.sharded import sharded_emit_adjacency
+
+    cuda0 = torch.device(DEVICE)
+    devs = [cuda0] * SHARDS
+    per_shard = LANES // SHARDS
+    cmp_blocks = []
+
+    # ---- 20-21. the sharded token decode, against the single-device
+    # token drive and the input lists; the last shard's launch against
+    # the plain version at its lanes and cap ----
+    for name, graph in (("cnr-2000", g), ("cnr-2000 b512", gb)):
+        single = TorchGraphDecoder(graph, device=cuda0)
+        want_v, want_c = single.decode_tokens(LANES)
+        sdec = ShardedGraphDecoder(graph, devs)
+        (tok, cold_s), counts = runs(
+            f"sharded tokens {name}", lambda: timed(
+                lambda: sdec.decode_tokens(lanes_per_device=per_shard)),
+            ["decode_blocks"])
+        tokens_equal = (np.array_equal(tok[0], want_v)
+                        and np.array_equal(tok[1], want_c))
+        off, succs = reconstruct(*tok, graph.num_nodes,
+                                 graph.prelude.min_interval_length,
+                                 device=cuda0)
+        lists_exact = (np.array_equal(off, adj.offsets)
+                       and np.array_equal(succs, adj.succs))
+        pl = sdec.single.plan(LANES, pad_to=SHARDS)
+        L = len(pl["starts_np"])
+        last = slice(L - L // SHARDS, L)
+        args = (sdec.tables[cuda0],
+                *(pl[k][last] for k in ("states", "ptrs", "starts", "ends",
+                                        "ring")),
+                sdec.single.window, sdec.single.min_interval, pl["cap"])
+        shard_cmp = compare(decode_cuda.decode_blocks(*args),
+                            decode_blocks_plain(*args))
+        cmp_blocks.append(shard_cmp)
+        t_sharded = cuda_ms(lambda: sdec.decode_raw(per_shard), runs=10)
+        t_single = cuda_ms(lambda: single.decode_raw(LANES), runs=10)
+        emit("sharded_tokens", graph=name, shards=[str(d) for d in devs],
+             lanes=L, padded_lanes=int(np.sum(pl["starts_np"]
+                                              == pl["ends_np"])),
+             cap=pl["cap"], cold_seconds=cold_s, device_ms=t_sharded,
+             single_device_ms=t_single, tokens_equal=tokens_equal,
+             lists_exact=lists_exact, launches=counts,
+             last_shard={"lanes": L // SHARDS, "cap": pl["cap"],
+                         **shard_cmp})
+        if not (tokens_equal and lists_exact and shard_cmp["bit_equal"]):
+            raise SystemExit(f"sharded tokens {name}: not equal to the "
+                             "single-device decode or the lists, or a "
+                             "shard differs from the plain version")
+        del sdec, single, tok
+
+    # ---- 22. the sharded merged emit: on a fresh plan bit for bit what
+    # the single-device call returns; on the verified plan of phase 9 (the
+    # steady state: mark_deg launches and the cached-layout post-pass)
+    # bit for bit the single-device steady call, timed beside it; the last
+    # shard's launch against the plain version at its shape ----
+    dec_a = TorchGraphDecoder(g, device=cuda0)
+    dec_b = TorchGraphDecoder(g, device=cuda0)
+    (first, first_s), counts = runs(
+        "sharded emit", lambda: timed(
+            lambda: sharded_emit_adjacency(devs, dec_a, EMIT_LANES)),
+        ["decode_emit"])
+    want, single_first_s = timed(
+        lambda: dec_b.decode_to_adjacency_device(EMIT_LANES))
+    first_equal = all(a.dtype == b.dtype and torch.equal(a, b)
+                      for a, b in zip(first, want))
+    first_exact = adjacency_exact(first, adj)
+    del first, want, dec_a, dec_b
+    epl = edec._plans[("emit", EMIT_LANES)]
+    (verified, _), counts_v = runs(
+        "sharded emit verified", lambda: timed(
+            lambda: sharded_emit_adjacency(devs, edec, EMIT_LANES)),
+        ["decode_emit"])
+    verified_exact = adjacency_exact(verified, adj)
+    verified_equal = all(torch.equal(a, b) for a, b in
+                         zip(verified, edec._steady(epl)))
+    del verified
+    warm = [timed(lambda: sharded_emit_adjacency(devs, edec, EMIT_LANES))[1]
+            for _ in range(3)]
+    t_sharded = cuda_ms(
+        lambda: sharded_emit_adjacency(devs, edec, EMIT_LANES), runs=5)
+    t_steady = cuda_ms(lambda: edec.decode_to_adjacency_device(EMIT_LANES),
+                       runs=10)
+    t_eager = cuda_ms(lambda: edec._steady(epl), runs=10)
+    L = epl["ptrs"].shape[0]
+    last = slice(L - L // SHARDS, L)
+    eargs = (edec.tables, epl["regs"][:, last].contiguous(),
+             epl["ptrs"][last], edec.window, edec.min_interval, epl["cap"])
+    (ek, ep), plain_s = timed(lambda: (
+        emit_cuda.decode_emit(*eargs, T=epl["T"], mark_deg=True),
+        decode_emit_plain(*eargs, T=epl["T"], mark_deg=True)))
+    cmp_emit = compare(ek, ep)
+    emit("sharded_emit", graph="cnr-2000", shards=[str(d) for d in devs],
+         lanes=L, T=epl["T"], cap=epl["cap"], first_plan={
+             "seconds": first_s, "single_device_seconds": single_first_s,
+             "bit_equal_single_device": first_equal, "exact": first_exact,
+             "launches": counts},
+         verified_plan={"exact": verified_exact,
+                        "bit_equal_single_device_steady": verified_equal,
+                        "warm_seconds": warm,
+                        "device_ms": t_sharded,
+                        "steady_call_device_ms": t_steady,
+                        "steady_eager_device_ms": t_eager,
+                        "launches": counts_v},
+         last_shard={"lanes": L // SHARDS, "cap": epl["cap"],
+                     "plain_and_kernel_seconds": plain_s, **cmp_emit})
+    if not (first_equal and first_exact and verified_exact
+            and verified_equal and cmp_emit["bit_equal"]):
+        raise SystemExit("sharded emit: not bit-equal to the single-device "
+                         "call or not exact, or a shard differs from the "
+                         "plain version")
+    del ek, ep
+
+    # ---- 23-24. the launcher: ranks on the one card over gloo (serial
+    # and hc artifacts), then one NCCL rank on each; each gathered CSR
+    # against the input lists ----
+    def launcher(name, base, flags, timeout, ranks):
+        out = os.path.join(tmp, f"{name}.npz")
+        reports, gathered, sec = run_launcher(
+            [base, *flags, "--gather", out], timeout)
+        z = np.load(out)
+        exact = (np.array_equal(z["offsets"].astype(np.int64),
+                                adj.offsets.astype(np.int64))
+                 and np.array_equal(z["succs"], adj.succs))
+        nodes = [r["nodes"] for r in reports]
+        covered = (len(reports) == ranks and nodes[0][0] == 0
+                   and nodes[-1][1] == adj.num_nodes
+                   and all(a[1] == b[0] for a, b in zip(nodes, nodes[1:])))
+        launched = [r["launches"]["decode_blocks"] for r in reports]
+        runs.total["decode_blocks"] += sum(launched)
+        emit("launcher", case=name, args=flags, seconds=sec, ranks=reports,
+             gathered=gathered, exact=exact)
+        if not (exact and covered and min(launched, default=0) >= 1):
+            raise SystemExit(f"launcher {name}: the gathered CSR is not the "
+                             "graph, the ranks do not cover it, or a rank "
+                             "never launched decode_blocks")
+
+    cnr_base = os.path.join(tmp, "cnr")
+    gloo = ["--local-dryrun", str(RANKS), "--device", DEVICE,
+            "--reps", "3"]
+    launcher("gloo_serial", cnr_base, gloo, 300, RANKS)
+    launcher("gloo_hc", hc_base, gloo, 300, RANKS)
+    for name, base in (("nccl_one_rank", cnr_base),
+                       ("nccl_one_rank_hc", hc_base)):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        launcher(name, base,
+                 ["--num-processes", "1", "--backend", "nccl",
+                  "--coordinator", f"127.0.0.1:{port}", "--reps", "3"],
+                 300, 1)
+
+    # ---- 25. the dry run over SHARDS entries of the card ----
+    dry, counts = runs("dry run", lambda: dryrun_multichip(SHARDS, DEVICE),
+                       ["decode_blocks", "decode_emit"])
+    emit("dryrun_multichip", **dry, launches=counts)
+    return {"decode_blocks": {
+        "bit_equal": all(c["bit_equal"] for c in cmp_blocks),
+        "max_abs_err": max(c["max_abs_err"] for c in cmp_blocks)},
+        "decode_emit": cmp_emit}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
     from webgraph_ans_torch import (ANSBvGraph, TorchGraphDecoder,
-                                    reconstruct, store, to_dense_csr)
+                                    reconstruct, store)
     from webgraph_ans_torch.bvgraph.graph import Adjacency, load_bvgraph
     from webgraph_ans_torch.bvgraph.sequential import ANSBvGraphSeq
     from webgraph_ans_torch.bvgraph.store import (compress_adjacency,
@@ -775,7 +1017,6 @@ def main() -> int:
     from webgraph_ans_torch.ops.decode_torch import (decode_blocks_plain,
                                                      fetch_block_tokens)
     from webgraph_ans_torch.ops.emit_torch import decode_emit_plain
-    from webgraph_ans_torch.ops.reconstruct_device import _quant
 
     cuda = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -979,15 +1220,6 @@ def main() -> int:
         # ---- 9. merged-emit path end to end: first call, rebalance and
         # refinement until the plan is verified, then the steady state ----
         n, arcs = g.num_nodes, g.num_arcs
-        E = _quant(arcs)
-
-        def exact_adjacency(res3) -> bool:
-            offs_d, succs_d = to_dense_csr(*res3, E)
-            host = torch.cat([offs_d[:n + 1], succs_d[:arcs]]).cpu().numpy()
-            return (np.array_equal(host[:n + 1].astype(np.int64),
-                                   adj.offsets.astype(np.int64))
-                    and np.array_equal(host[n + 1:].astype(np.uint32),
-                                       adj.succs))
 
         edec = TorchGraphDecoder(g)
         host_s = {"emit_bounds": 0.0, "safe_boundaries": 0.0}
@@ -1014,7 +1246,7 @@ def main() -> int:
                 lambda: edec.decode_to_adjacency_device(EMIT_LANES))
             epl = edec._plans[("emit", EMIT_LANES)]
             cold.append({"seconds": sec, "ns_per_arc": sec * 1e9 / arcs,
-                         "exact": exact_adjacency(res3),
+                         "exact": adjacency_exact(res3, adj),
                          "verified": bool(epl.get("verified"))})
             if epl.get("verified") and "fx_offs" in epl.get("post_meta", {}):
                 break
@@ -1034,7 +1266,7 @@ def main() -> int:
                 lambda: edec.decode_to_adjacency_device(EMIT_LANES))
             steady.append(sec)
             results.append(res3)
-        steady_exact = all(exact_adjacency(r) for r in results)
+        steady_exact = all(adjacency_exact(r, adj) for r in results)
         del results
         steady_launches = {
             "decode_emit": emit_cuda.decode_emit.launches,
@@ -1087,13 +1319,14 @@ def main() -> int:
             res3, sec = timed(
                 lambda: edec4.decode_to_adjacency_device(WIDE_EMIT_LANES))
             epl4 = edec4._plans[("emit", WIDE_EMIT_LANES)]
-            cold4.append({"seconds": sec, "exact": exact_adjacency(res3)})
+            cold4.append({"seconds": sec,
+                          "exact": adjacency_exact(res3, adj)})
             if epl4.get("verified") and "fx_offs" in epl4.get("post_meta",
                                                               {}):
                 break
         steady4 = [timed(lambda: edec4.decode_to_adjacency_device(
             WIDE_EMIT_LANES)) for _ in range(3)]
-        exact4 = all(exact_adjacency(r) for r, _ in steady4)
+        exact4 = all(adjacency_exact(r, adj) for r, _ in steady4)
         t_steady4 = cuda_ms(
             lambda: edec4.decode_to_adjacency_device(WIDE_EMIT_LANES),
             runs=10)
@@ -1241,14 +1474,14 @@ def main() -> int:
                 lambda: bdec.decode_to_adjacency_device(EMIT_LANES))
             bpl = bdec._plans[("emit", EMIT_LANES)]
             emit_calls.append({"seconds": sec,
-                               "exact": exact_adjacency(res3),
+                               "exact": adjacency_exact(res3, adj),
                                "verified": bool(bpl.get("verified"))})
             if bpl.get("verified") and "fx_offs" in bpl.get("post_meta", {}):
                 break
         res3, steady_b = timed(
             lambda: bdec.decode_to_adjacency_device(EMIT_LANES))
         emit_calls.append({"seconds": steady_b, "steady": True,
-                           "exact": exact_adjacency(res3)})
+                           "exact": adjacency_exact(res3, adj)})
         seq, seq_s = timed(lambda: ANSBvGraphSeq.load(base_b).decode_all())
         seq_exact = (np.array_equal(seq.offsets, adj.offsets)
                      and np.array_equal(seq.succs, adj.succs))
@@ -1266,22 +1499,29 @@ def main() -> int:
 
         # ---- 15-19. the sort path, its fallbacks and random access ----
         runs = PathRuns()
-        sort_path_phases(g, adj, edec, runs)
+        hc_base = os.path.join(tmp, "cnr_hc")
+        sort_path_phases(g, adj, edec, runs, hc_base)
         ra_cmp = random_access_phases(g, adj, edec, runs)
+
+        # ---- 20-25. scale-out: shards on the card, ranks over gloo and
+        # NCCL ----
+        so_cmp = scale_out_phases(g, gb, adj, edec, runs, tmp, hc_base)
 
     if spills:
         raise SystemExit(f"kernel instances spill registers: {spills}")
 
-    # ---- 20. the kernels line: launches summed over every path ----
+    # ---- 26. the kernels line: launches summed over every path ----
     kernels = [{
         "name": "decode_blocks", "route": "cuda",
         "source": "webgraph_ans_torch/csrc/decode_blocks.cu",
         "replaces": "webgraph_ans_tpu/ops/decode_pallas.py:440",
         "launches": launches + runs.total["decode_blocks"],
         "bit_equal": (cmp_cnr["bit_equal"]
-                      and ra_cmp["decode_blocks"]["bit_equal"]),
+                      and ra_cmp["decode_blocks"]["bit_equal"]
+                      and so_cmp["decode_blocks"]["bit_equal"]),
         "max_abs_err": max(cmp_cnr["max_abs_err"],
-                           ra_cmp["decode_blocks"]["max_abs_err"]),
+                           ra_cmp["decode_blocks"]["max_abs_err"],
+                           so_cmp["decode_blocks"]["max_abs_err"]),
         "ms": t_k["median"],
         "plain_ms": plain_s * 1e3, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": None,
@@ -1303,9 +1543,11 @@ def main() -> int:
         "replaces": "webgraph_ans_tpu/ops/emit_pallas.py:501",
         "launches": path_launches["decode_emit"] + runs.total["decode_emit"],
         "bit_equal": (cmp_emit["bit_equal"]
-                      and ra_cmp["decode_emit"]["bit_equal"]),
+                      and ra_cmp["decode_emit"]["bit_equal"]
+                      and so_cmp["decode_emit"]["bit_equal"]),
         "max_abs_err": max(cmp_emit["max_abs_err"],
-                           ra_cmp["decode_emit"]["max_abs_err"]),
+                           ra_cmp["decode_emit"]["max_abs_err"],
+                           so_cmp["decode_emit"]["max_abs_err"]),
         "ms": t_emit["median"],
         "plain_ms": eplain_s * 1e3, "bound_ms": ebound["bound_ms"],
         "bound_by": ebound["bound_by"], "library_ms": None,

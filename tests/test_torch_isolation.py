@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX
-package, its entry points (the device stages of the store among them) run
+package (nor does its launcher's process), its entry points (the device stages of the store among them) run
 on CUDA unless told otherwise, and its kernel wrappers dispatch on the
 tensor's device only and build for sm_90a."""
 
@@ -53,6 +53,19 @@ res = compress_adjacency(Adjacency.from_lists(lists), 7, 3, 2, encode_blocks=4,
                          use_tpu_model_search=True, device="cpu")
 from webgraph_ans_torch.bvgraph.sequential import ANSBvGraphSeq
 assert ANSBvGraphSeq(res.prelude).decode_all().to_lists() == lists
+from webgraph_ans_torch import (MultihostGraphDecoder, ShardedGraphDecoder,
+                                dryrun)
+v2, c2 = ShardedGraphDecoder(g, ["cpu"] * 2).decode_tokens(2)
+assert np.array_equal(v2, vals) and np.array_equal(c2, comps)
+lo, hi, off, succs = MultihostGraphDecoder(g, 4, device="cpu").decode_shard()
+assert (lo, hi) == (0, 60) and Adjacency(off, succs).to_lists() == lists
+dryrun.dryrun_multichip(2, device="cpu")
+from webgraph_ans_torch.ans import codec, pyencoder, reference_codec, refsize
+model, stream, states, ptrs, final = pyencoder.encode_graph_py(lists)
+assert refsize.reference_ans_payload_bytes(model, len(stream)) > 0
+enc = codec.encode_raw(model, np.array([3, 1]), np.array([0, 0]))
+assert codec.decode_raw(model, enc.stream, enc.final_state,
+                        np.array([0, 0])).tolist() == [1, 3]
 import webgraph_ans_torch.cli
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "webgraph_ans_tpu"))
@@ -68,6 +81,42 @@ def test_port_imports_no_jax():
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "leaked: []" in res.stdout
+
+
+_LAUNCH_ISOLATED = r"""
+import sys
+from webgraph_ans_torch import launch
+rc = launch.main(sys.argv[1:])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "webgraph_ans_tpu"))
+print("leaked:", bad)
+sys.exit(rc or (1 if bad else 0))
+"""
+
+
+def test_launcher_imports_no_jax(tmp_path):
+    """The launcher in a process of its own, one rank in a gloo group of
+    one, with the ordered gather: its lists are the graph's, and neither
+    jax nor the JAX package was imported."""
+    from webgraph_ans_torch.ans.prelude import save_pointers, save_states
+
+    lists = [[1, 2], [0, 2], [0, 1, 5], [3], [], [0, 4]]
+    res = compress_adjacency(Adjacency.from_lists(lists), 7, 3, 2)
+    base, out = str(tmp_path / "g"), str(tmp_path / "csr.npz")
+    res.prelude.save(base)
+    save_states(base, res.states)
+    save_pointers(base, res.pointers)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    run = subprocess.run(
+        [sys.executable, "-c", _LAUNCH_ISOLATED, base, "--num-processes",
+         "1", "--backend", "gloo", "--device", "cpu", "--reps", "1",
+         "--lanes-per-host", "2", "--gather", out],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "leaked: []" in run.stdout and '"backend": "gloo"' in run.stdout
+    z = np.load(out)
+    assert Adjacency(z["offsets"], z["succs"]).to_lists() == lists
 
 
 def _small_graph():

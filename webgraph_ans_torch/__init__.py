@@ -20,6 +20,12 @@ whose hot loops are CUDA kernels built for sm_90a on first use:
     offsets_d, succs_d, E = TorchGraphDecoder(g).decode_to_csr_device()
     # batch random access: wave decode, device CSR, per-query merged emit
     lists = TorchRandomAccess(TorchGraphDecoder(g)).successors_batch([4, 0])
+    # scale-out: the token decode's lanes split over devices (a device may
+    # repeat: several shards on one card), or a node-range shard a process
+    vals, comps = ShardedGraphDecoder(g, ["cuda:0"] * 4).decode_tokens(1024)
+    lo, hi, offsets, succs = MultihostGraphDecoder(g).decode_shard()
+    # ... launched one process a rank, gathered in node order:
+    # python -m webgraph_ans_torch.launch out --local-dryrun 4 --device cpu
 
 Entry points run on CUDA unless given device="cpu" (the plain PyTorch
 versions of the kernels). The package imports neither jax nor
@@ -33,8 +39,10 @@ from .ops.graph_decode import TorchGraphDecoder
 from .ops.random_torch import (TorchCsrServer, TorchEmitRandomAccess,
                                TorchRandomAccess)
 from .ops.reconstruct_torch import reconstruct
+from .parallel import MultihostGraphDecoder, ShardedGraphDecoder
 
-__all__ = ["ANSBvGraph", "TorchCsrServer", "TorchEmitRandomAccess",
-           "TorchGraphDecoder", "TorchRandomAccess", "reconstruct", "store",
-           "to_dense_csr", "to_host_lists"]
+__all__ = ["ANSBvGraph", "MultihostGraphDecoder", "ShardedGraphDecoder",
+           "TorchCsrServer", "TorchEmitRandomAccess", "TorchGraphDecoder",
+           "TorchRandomAccess", "reconstruct", "store", "to_dense_csr",
+           "to_host_lists"]
 __version__ = "0.1.0"

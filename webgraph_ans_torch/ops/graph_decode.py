@@ -14,6 +14,7 @@ absolute 64-bit word indices, so a lane may span any part of the stream.
 
 from __future__ import annotations
 
+import functools
 import logging
 
 import numpy as np
@@ -63,6 +64,16 @@ def _grow_cap(run, ok: torch.Tensor, cap: int, bound: int,
         cap *= 2
         idx = idx[~run(idx, cap)]
     return cap
+
+
+def _pad_lanes(starts, ends, hi: int, pad_to: int):
+    """Lane bounds as int32, padded with empty lanes (start == end == hi)
+    up to a multiple of pad_to."""
+    pad = -len(starts) % pad_to
+    if pad:
+        starts = np.concatenate([starts, np.full(pad, hi, starts.dtype)])
+        ends = np.concatenate([ends, np.full(pad, hi, ends.dtype)])
+    return starts.astype(np.int32), ends.astype(np.int32)
 
 
 def _all_done(ok: torch.Tensor, cap: int, what: str):
@@ -139,7 +150,8 @@ class TorchGraphDecoder:
         return (np.where(live, states[idx], 0).astype(np.uint32),
                 np.where(live, ptrs[idx], 0).astype(np.int64))
 
-    def _block_bounds(self, num_lanes: int, lo: int = 0, hi: int | None = None):
+    def _block_bounds(self, num_lanes: int, lo: int = 0, hi: int | None = None,
+                      pad_to: int = 1):
         """Block boundaries over nodes [lo, hi) balanced by per-node STREAM
         spans (pointers are descending in node order), so lanes carry
         similar token loads instead of similar node counts.
@@ -147,12 +159,14 @@ class TorchGraphDecoder:
         On block-parallel-encoded (prelude v2) files, every encode-block
         start inside the range is unioned into the boundary set — a decode
         lane must never cross an encode-block boundary (the rANS state
-        resets there)."""
+        resets there). The result is padded with empty lanes (start ==
+        end == hi) up to a multiple of `pad_to`, so that callers that split
+        the lanes over devices get equal groups."""
         n = self.num_nodes
         hi = n if hi is None else hi
         span = hi - lo
         if self.phase_step > 1:
-            return self._sampled_bounds(num_lanes, lo, hi)
+            return self._sampled_bounds(num_lanes, lo, hi, pad_to)
         blocks = self.graph.prelude.blocks
         if blocks is not None:
             bstarts = np.asarray(blocks[0], np.int64)
@@ -165,7 +179,7 @@ class TorchGraphDecoder:
                 ends = np.empty_like(starts)
                 ends[:-1] = starts[1:]
                 ends[-1] = hi
-                return starts.astype(np.int32), ends.astype(np.int32)
+                return _pad_lanes(starts, ends, hi, pad_to)
         ptrs = self.pointers
         idx = np.arange(num_lanes, dtype=np.int64)
         if span <= num_lanes or ptrs[lo] == ptrs[hi - 1]:
@@ -188,9 +202,10 @@ class TorchGraphDecoder:
             starts = np.minimum(starts, hi - 1)
             starts = np.maximum.accumulate(starts)
             starts, ends = self._union_encode_blocks(starts, None, lo, hi)
-        return starts.astype(np.int32), ends.astype(np.int32)
+        return _pad_lanes(starts, ends, hi, pad_to)
 
-    def _sampled_bounds(self, num_lanes: int, lo: int, hi: int):
+    def _sampled_bounds(self, num_lanes: int, lo: int, hi: int,
+                        pad_to: int = 1):
         """Lane boundaries on phase-sampled artifacts: candidates are the
         valid entry points (sampled nodes + block starts), balanced by
         stream consumption; every encode-block start in range is
@@ -221,7 +236,7 @@ class TorchGraphDecoder:
         ends = np.empty_like(starts)
         ends[:-1] = starts[1:]
         ends[-1] = hi
-        return starts.astype(np.int32), ends.astype(np.int32)
+        return _pad_lanes(starts, ends, hi, pad_to)
 
     def _union_encode_blocks(self, starts, ends, lo: int, hi: int):
         """Unions prelude encode-block start nodes (clipped to (lo, hi))
@@ -240,15 +255,25 @@ class TorchGraphDecoder:
             ends[-1] = hi
         return starts, ends
 
-    def plan(self, num_lanes: int) -> dict:
-        """Cached per-lane-count decode plan: lane bounds, entry phases and
-        the seeded outdegree rings, on the device. The plan also remembers
-        a tight token cap once a decode has observed the true counts."""
-        pl = self._plans.get(num_lanes)
+    def plan(self, num_lanes: int, lo: int = 0, hi: int | None = None,
+             pad_to: int = 1, seed=None) -> dict:
+        """Cached decode plan of nodes [lo, hi) (the whole graph by
+        default) over num_lanes lanes, padded with empty lanes to a
+        multiple of pad_to: lane bounds, entry phases and the seeded
+        outdegree rings, on the device. The plan also remembers a tight
+        token cap once a decode has observed the true counts. seed(states,
+        ptrs, starts, window) seeds the rings in place of seed_rings on
+        the decoder's device (the sharded decoder splits it over its
+        devices)."""
+        n = self.num_nodes
+        hi = n if hi is None else hi
+        key = (num_lanes if (lo, hi, pad_to) == (0, n, 1)
+               else (num_lanes, lo, hi, pad_to))
+        pl = self._plans.get(key)
         if pl is not None:
             return pl
-        starts, ends = self._block_bounds(num_lanes)
-        n, W, dev = self.num_nodes, self.window, self.device
+        starts, ends = self._block_bounds(num_lanes, lo, hi, pad_to)
+        W, dev = self.window, self.device
         starts_d = torch.from_numpy(starts).to(dev)
         if W > 0 and self.phase_step > 1:
             # sampled artifacts have no per-node phases to seed from: get
@@ -259,8 +284,7 @@ class TorchGraphDecoder:
             # entries before node 0 are masked inside seed_rings)
             pre = starts[:, None].astype(np.int64) - W + np.arange(W)[None, :]
             pre_cl = np.clip(pre, 0, n - 1)
-            ring = seed_rings(
-                self.tables,
+            ring = (seed or functools.partial(seed_rings, self.tables))(
                 torch.from_numpy(self.states_np[pre_cl].astype(np.int64)).to(dev),
                 torch.from_numpy(self.pointers[pre_cl]).to(dev), starts_d, W)
         else:
@@ -271,19 +295,23 @@ class TorchGraphDecoder:
             entry_states = self.states_np[last]
             entry_ptrs = self.pointers[last]
         else:
-            entry_states, entry_ptrs = self._entry_lookup(starts)
+            # a padding lane's start need not be an entry point
+            entry_states, entry_ptrs = self._entry_lookup(
+                np.where(starts < ends, starts, n))
         # padding lanes (start == end) never touch the stream
         entry_ptrs = np.where(starts < ends, entry_ptrs, 0)
         # ~2.05 tokens per arc + 3 per node is a generous upper estimate
-        # for BvGraph token streams; overflow doubles and retries.
-        est = (2 * self.num_arcs + 3 * self.num_nodes) // max(len(starts), 1)
+        # for BvGraph token streams, here scaled to the range's share of
+        # the nodes; overflow doubles and retries.
+        est = ((2 * self.num_arcs + 3 * n) * (hi - lo)
+               // max(n * len(starts), 1))
         pl = dict(
             starts=starts_d, ends=torch.from_numpy(ends).to(dev), ring=ring,
             states=torch.from_numpy(entry_states.astype(np.int64)).to(dev),
             ptrs=torch.from_numpy(entry_ptrs.astype(np.int64)).to(dev),
             starts_np=starts, ends_np=ends,
             cap=round_cap(self.params, max(64, int(est * 1.3))))
-        self._plans[num_lanes] = pl
+        self._plans[key] = pl
         return pl
 
     def _rings_via_native(self, starts: np.ndarray, W: int) -> np.ndarray:
@@ -326,41 +354,47 @@ class TorchGraphDecoder:
             return 2 * (tokens + m + n)
         return tokens
 
+    def _launch_blocks(self, lanes, cap: int, idx=None,
+                       emit_aux: bool = False):
+        """decode_blocks on the decoder's device over a plan's lanes
+        (states, ptrs, starts, ends, ring), or over the lanes idx of
+        them: the default `launch` of decode_raw."""
+        if idx is not None:
+            lanes = [a[idx] for a in lanes]
+        return decode_blocks(self.tables, *lanes, self.window,
+                             self.min_interval, cap, emit_aux=emit_aux)
+
     def decode_raw(self, num_lanes: int = 256, cap: int | None = None,
-                   emit_aux: bool = False):
-        """Lane-parallel token decode of the whole graph; returns the raw
-        device output (out, counts, cap) of decode_blocks (layout:
-        ops/decode_torch.py). Reads the ok flags back; when a lane did not
-        fit, doubles the cap for the unfinished lanes alone (raising once
-        it passes step_bound), then decodes every lane at that cap.
-        emit_aux=True decodes in aux mode; its cap covers tokens plus one
-        summary step per node and is kept in the plan apart from the
-        token cap."""
-        pl = self.plan(num_lanes)
+                   emit_aux: bool = False, lo: int = 0,
+                   hi: int | None = None, pad_to: int = 1, seed=None,
+                   launch=None):
+        """Lane-parallel token decode of nodes [lo, hi) (the whole graph
+        by default); returns the raw device output (out, counts, cap) of
+        decode_blocks (layout: ops/decode_torch.py). Reads the ok flags
+        back; when a lane did not fit, doubles the cap for the unfinished
+        lanes alone (raising once it passes step_bound), then decodes
+        every lane at that cap. emit_aux=True decodes in aux mode; its cap
+        covers tokens plus one summary step per node and is kept in the
+        plan apart from the token cap. pad_to and seed go to plan();
+        launch(lanes, cap, idx=None, emit_aux=False) -> (out, counts, ok)
+        runs the kernel in place of _launch_blocks (the sharded decoder
+        splits the lanes over its devices)."""
+        pl = self.plan(num_lanes, lo, hi, pad_to, seed)
+        launch = launch or self._launch_blocks
         auto = cap is None
         capkey = "cap_aux" if emit_aux else "cap"
         if auto and capkey not in pl:
             nodes_max = int(np.max(pl["ends_np"] - pl["starts_np"]))
             pl["cap_aux"] = round_cap(self.params, pl["cap"] + nodes_max)
         cap = pl[capkey] if auto else round_cap(self.params, cap)
-        lane_args = [pl[k] for k in ("states", "ptrs", "starts", "ends",
-                                     "ring")]
-
-        def run(idx, c):
-            return decode_blocks(self.tables, *(a[idx] for a in lane_args),
-                                 self.window, self.min_interval, c,
-                                 emit_aux=emit_aux)[2]
-
-        out, counts, ok = decode_blocks(
-            self.tables, *lane_args, self.window, self.min_interval, cap,
-            emit_aux=emit_aux)
+        lanes = [pl[k] for k in ("states", "ptrs", "starts", "ends", "ring")]
+        out, counts, ok = launch(lanes, cap, emit_aux=emit_aux)
         if not bool(ok.all()):
-            cap = _grow_cap(run, ok, cap,
-                            self.step_bound("aux" if emit_aux else "token"),
-                            "decode_blocks")
-            out, counts, ok = decode_blocks(
-                self.tables, *lane_args, self.window, self.min_interval, cap,
-                emit_aux=emit_aux)
+            cap = _grow_cap(
+                lambda idx, c: launch(lanes, c, idx, emit_aux=emit_aux)[2],
+                ok, cap, self.step_bound("aux" if emit_aux else "token"),
+                "decode_blocks")
+            out, counts, ok = launch(lanes, cap, emit_aux=emit_aux)
             _all_done(ok, cap, "decode_blocks")
         if auto:
             pl[capkey] = cap   # remember a successful (possibly grown) cap
@@ -382,11 +416,13 @@ class TorchGraphDecoder:
         pl["cap"] = min(pl["cap"], tight)
         return pl["cap"]
 
-    def decode_tokens(self, num_lanes: int = 256, cap: int | None = None):
-        """Decodes every (component, value) token of the graph, lane-parallel
-        over `num_lanes` contiguous node blocks. Returns (values u32,
-        comps u8) concatenated in forward node order (host arrays)."""
-        out, counts, cap = self.decode_raw(num_lanes, cap)
+    def decode_tokens(self, num_lanes: int = 256, cap: int | None = None,
+                      lo: int = 0, hi: int | None = None):
+        """Decodes every (component, value) token of nodes [lo, hi) (the
+        whole graph by default), lane-parallel over `num_lanes` contiguous
+        node blocks. Returns (values u32, comps u8) concatenated in forward
+        node order (host arrays)."""
+        out, counts, cap = self.decode_raw(num_lanes, cap, lo=lo, hi=hi)
         return fetch_block_tokens(out, counts, cap)
 
     def decode_to_csr_device(self, num_lanes: int = 2048,
@@ -628,8 +664,18 @@ class TorchGraphDecoder:
             return True
         return emit_cuda.ring_fits(self.window, T)
 
+    def _launch_emit(self, regs, ptrs, cap: int, T: int, idx=None,
+                     mark_deg: bool = False):
+        """decode_emit on the decoder's device over a plan's register
+        file and entry pointers, or over the lanes idx of them: the
+        default `launch` of the merged-emit path."""
+        if idx is not None:
+            regs, ptrs = regs[:, idx], ptrs[idx]
+        return decode_emit(self.tables, regs, ptrs, self.window,
+                           self.min_interval, cap, T=T, mark_deg=mark_deg)
+
     def decode_emit_raw(self, num_lanes: int = 2048, cap: int | None = None,
-                        check: bool = True):
+                        check: bool = True, launch=None):
         """Merged-emit kernel decode: returns (val, xch, nib, cap), the
         device channels of ops/emit_post.py. check=True reads the lanes'
         done flags back; when a lane did not finish, doubles the cap for
@@ -637,7 +683,10 @@ class TorchGraphDecoder:
         decodes every lane at that cap; it then keeps the observed rows
         and the tight cap in the plan; check=False issues no host
         synchronisation. Raises EmitPlanUnsupported for a plan the kernel
-        cannot serve."""
+        cannot serve. launch(regs, ptrs, cap, T, idx=None, mark_deg=False)
+        returns decode_emit's outputs in place of _launch_emit (the
+        sharded merged emit splits the lanes over its devices)."""
+        launch = launch or self._launch_emit
         pl = self._emit_plan(num_lanes)
         if not self._emit_servable(pl["T"]):
             raise EmitPlanUnsupported(
@@ -645,20 +694,15 @@ class TorchGraphDecoder:
                 "does not fit a block's shared memory")
         auto = cap is None
         cap = pl["cap"] if auto else -(-cap // UNROLL) * UNROLL
-
-        def launch(regs, ptrs, c):
-            return decode_emit(self.tables, regs, ptrs, self.window,
-                               self.min_interval, c, T=pl["T"])
-
-        val, xch, nib, rows, ok, _ = launch(pl["regs"], pl["ptrs"], cap)
+        regs, ptrs, T = pl["regs"], pl["ptrs"], pl["T"]
+        val, xch, nib, rows, ok, _ = launch(regs, ptrs, cap, T)
         if not check:
             return val, xch, nib, cap
         if not bool(ok.all()):
             cap = _grow_cap(
-                lambda idx, c: launch(pl["regs"][:, idx], pl["ptrs"][idx],
-                                      c)[4],
+                lambda idx, c: launch(regs, ptrs, c, T, idx)[4],
                 ok, cap, self.step_bound("emit"), "decode_emit")
-            val, xch, nib, rows, ok, _ = launch(pl["regs"], pl["ptrs"], cap)
+            val, xch, nib, rows, ok, _ = launch(regs, ptrs, cap, T)
             _all_done(ok, cap, "decode_emit")
         rows_np = rows.cpu().numpy()
         pl["rows_np"] = rows_np
@@ -667,13 +711,12 @@ class TorchGraphDecoder:
             pl["cap"] = -(-max(int(rows_np.max()), UNROLL) // UNROLL) * UNROLL
         return val, xch, nib, cap
 
-    def _steady(self, pl: dict):
+    def _steady(self, pl: dict, launch=None):
         """The verified steady state: decode_emit in mark_deg mode and the
         cached-layout post-pass, with no host synchronisation."""
         mc = pl["post_meta"]
-        val, xch, _, _, _, _ = decode_emit(
-            self.tables, pl["regs"], pl["ptrs"], self.window,
-            self.min_interval, pl["cap"], T=pl["T"], mark_deg=True)
+        val, xch = (launch or self._launch_emit)(
+            pl["regs"], pl["ptrs"], pl["cap"], pl["T"], mark_deg=True)[:2]
         return emit_post.post_steady(
             val, xch, *(mc[k] for k in emit_post.STEADY_KEYS))
 
@@ -700,7 +743,8 @@ class TorchGraphDecoder:
         decode_emit.launches += 1      # the replay runs the kernel once
         return succs2d.clone(), starts_flat, degs.clone()
 
-    def decode_to_adjacency_device(self, num_lanes: int = 2048):
+    def decode_to_adjacency_device(self, num_lanes: int = 2048,
+                                   launch=None):
         """End-to-end merged-emit decode: the kernel and the post-pass.
         Returns (succs2d [cap, L] int32, starts_flat [n] int32, degs [n]
         int32) on the device: node x's successors are
@@ -722,21 +766,35 @@ class TorchGraphDecoder:
         high-compression artifacts without safe breaks). When the
         reference-safe boundaries cannot be computed, the rebalanced plan
         keeps the halo re-decode instead. A kernel's build or launch
-        failure and a device error are no such cause: they propagate."""
+        failure and a device error are no such cause: they propagate.
+
+        launch (decode_emit_raw's hook) runs the kernel in place of
+        _launch_emit; the plan, its cap loop and its post-pass are the
+        same. With a launch given there is no fallback (what would fall
+        back raises: EmitPlanUnsupported, or the post-pass's
+        RuntimeError) and the steady state runs eagerly, not as a CUDA
+        graph; plan-time steps (ring seeds, the safe boundaries) run on
+        the decoder's device."""
         pl0 = self._plans.setdefault(("emit", num_lanes), {})
+        if launch is not None and (pl0.get("emit_broken")
+                                   or self.window > MAX_WINDOW):
+            raise EmitPlanUnsupported(pl0.get("emit_broken") or
+                                      f"window {self.window} > {MAX_WINDOW}")
         if not pl0.get("emit_broken") and self.window > MAX_WINDOW:
             self._emit_broken(pl0, f"window {self.window} > {MAX_WINDOW}")
         if pl0.get("emit_broken"):
             return self._adjacency_via_sort_path(num_lanes)
         mc0 = pl0.get("post_meta") or {}
         if pl0.get("verified") and "fx_offs" in mc0:
-            if pl0["regs"].device.type == "cuda":
+            if launch is None and pl0["regs"].device.type == "cuda":
                 return self._steady_graph(pl0)
-            return self._steady(pl0)
+            return self._steady(pl0, launch)
         try:
             val, xch, nib, _ = self.decode_emit_raw(
-                num_lanes, check=not pl0.get("verified"))
+                num_lanes, check=not pl0.get("verified"), launch=launch)
         except EmitPlanUnsupported as e:
+            if launch is not None:
+                raise
             self._emit_broken(pl0, f"merged-emit kernel unavailable ({e})")
             return self._adjacency_via_sort_path(num_lanes)
         pl = self._plans[("emit", num_lanes)]
@@ -749,7 +807,7 @@ class TorchGraphDecoder:
                 val, xch, nib, pl["lane_of"], pl["starts_np"],
                 self.num_nodes, meta_cache=pl.setdefault("post_meta", {}))
         except RuntimeError as e:
-            if _device_fault(e):
+            if _device_fault(e) or launch is not None:
                 raise
             self._emit_broken(pl0, f"merged-emit post-pass unsupported for "
                                    f"this artifact ({e})")
@@ -787,7 +845,7 @@ class TorchGraphDecoder:
             for k in ("regs", "cap", "post_meta", "lane_of", "bounds",
                       "rows_np"):
                 pl.pop(k, None)
-            return self.decode_to_adjacency_device(num_lanes)
+            return self.decode_to_adjacency_device(num_lanes, launch)
         elif not pl.get("verified"):
             pl["verified"] = True
         return succs2d, starts_flat, degs

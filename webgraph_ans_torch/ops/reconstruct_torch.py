@@ -168,17 +168,19 @@ def reconstruct(values: np.ndarray, comps: np.ndarray, num_nodes: int,
     cop_runs_start = cop_runs_start[order]
     cop_runs_len = cop_runs_len[order]
 
-    # ---- reference-chain depths (bounded by max_ref_count) ----
-    depth = np.where(has_ref, -1, 0)
-    k = 0
-    while (depth < 0).any():
-        idx = np.nonzero(depth < 0)[0]
-        ok = depth[parent_local[idx]] == k
-        depth[idx[ok]] = k + 1
-        k += 1
-        if k > n:
-            raise ValueError("reference chains do not resolve")
-    max_depth = int(depth.max())
+    # ---- reference-chain depths: the steps from each node to the root
+    # of its chain, by pointer jumping (ceil(log2 depth) + 1 rounds) ----
+    depth = has_ref.astype(np.int64)
+    up = np.where(has_ref, parent_local, np.arange(n))
+    for _ in range(max(n, 1).bit_length() + 1):
+        open_ = has_ref[up]
+        if not open_.any():
+            break
+        depth = depth + np.where(open_, depth[up], 0)
+        up = up[up]
+    else:
+        raise ValueError("reference chains do not resolve")
+    max_depth = int(depth.max(initial=0))
 
     # ---- CSR layout ----
     offsets = np.zeros(n + 1, np.int64)
@@ -259,19 +261,22 @@ def reconstruct(values: np.ndarray, comps: np.ndarray, num_nodes: int,
     # effectively unbounded, so chains can be thousands deep): per round,
     # sort only that round's node segments on the host. Total work stays
     # O(E log E) because each segment is sorted exactly once. ----
-    order0 = np.nonzero(depth[seg_of_slot] == 0)[0]
-    s0 = succs[order0]
-    seg0 = seg_of_slot[order0]
-    perm = np.lexsort((s0, seg0))
-    succs[order0] = s0[perm]
-    for k in range(1, max_depth + 1):
-        if E_cop:
-            sel = np.nonzero(cop_depth == k)[0]
-            if len(sel):
-                succs[cop_slot[sel]] = succs[cop_src[sel]]
-        slots_k = np.nonzero(depth[seg_of_slot] == k)[0]
+    # The slots and copies of each depth are grouped once (a stable sort
+    # by depth keeps each group ascending), so a round touches only its
+    # own.
+    def by_depth(dep):
+        order = np.argsort(dep, kind="stable")
+        bounds = np.searchsorted(dep[order], np.arange(max_depth + 2))
+        return [order[bounds[k]:bounds[k + 1]] for k in range(max_depth + 1)]
+
+    slots = by_depth(depth[seg_of_slot])
+    cops = by_depth(cop_depth) if E_cop else None
+    for k in range(max_depth + 1):
+        if k and E_cop and len(cops[k]):
+            sel = cops[k]
+            succs[cop_slot[sel]] = succs[cop_src[sel]]
+        slots_k = slots[k]
         sk = succs[slots_k]
-        segk = seg_of_slot[slots_k]
-        perm = np.lexsort((sk, segk))
+        perm = np.lexsort((sk, seg_of_slot[slots_k]))
         succs[slots_k] = sk[perm]
     return offsets.astype(np.uint64), succs.astype(np.uint32)
