@@ -38,12 +38,25 @@ single-device call's, with one shard's kernel launch held against its
 plain version; the launcher (python -m webgraph_ans_torch.launch) at four
 ranks over gloo on the card, on the serial and the high-compression
 artifact, and at one rank over NCCL on both, each rank's shard gathered
-in node order and checked against the input; and dryrun_multichip(4). Each
-phase prints one JSON line; any failure raises and exits non-zero. The
-line before the last lists the kernels, with their launches summed over
-every path (the launcher's ranks report their own); the last line is the
-device record. Exits 1 without printing
-a result when CUDA is not available.
+in node order and checked against the input; and dryrun_multichip(4).
+Then every single-device path at the JAX package's bench size: the
+4,000,000-node synthetic web graph (synth_web_graph(4_000_000, seed=7),
+generated in the run), its serial artifact and a 512-block artifact
+encoded on the card; the token path, the merged emit into its steady
+state and the sort path at 8192 lanes, the merged emit and the sort path
+on the block artifact with the sequential reader, and the three
+random-access forms, each list for list against the generated graph, with
+each phase's peak device memory and its int32 layouts' largest sizes as
+shares of 2^31, and each kernel timed at those shapes and held against its
+plain version there: the token, aux-mode and serial merged-emit launches
+on a slice of lanes holding the plan's longest lane at the plan's cap, the
+block plan's merged emit and the encode on every lane at a shorter cap
+(a plain run to their caps of over 100,000 steps would not finish in the
+run), each with the plain version's seconds per step. Each phase prints
+one JSON line; any failure raises and exits non-zero. The line before the
+last lists the kernels, with their launches summed over every path (the
+launcher's ranks report their own); the last line is the device record.
+Exits 1 without printing a result when CUDA is not available.
 """
 
 from __future__ import annotations
@@ -75,6 +88,22 @@ TIMED_RUNS = 20
 SHARDS = 4      # device entries of the sharded paths, all on DEVICE
 RANKS = 4       # launcher ranks on the one card (gloo)
 DEVICE = "cuda:0"
+# The scale phases: the JAX package's bench fixture (bench.py:352-361),
+# generated here (numpy versions differ in the graph they draw), its
+# serial artifact and a 512-block artifact encoded on the card, decoded
+# at the bench's 8192 lanes.
+SYNTH_NODES = 4_000_000
+SYNTH_SEED = 7
+SCALE_LANES = 8192
+SCALE_BLOCKS = 512
+# the planner's bisection: 40 passes of the split and the final one
+SPLIT_PASSES = 41
+# The scale phases' holds against the plain versions: a slice of this
+# many lanes holding the plan's longest lane, at the plan's cap; or, where
+# a plain run to the cap would not finish in the run (the block plan's
+# merged emit and the encode, caps past 100,000), every lane at this cap.
+SCALE_PLAIN_LANES = 512
+SCALE_PLAIN_CAP = 4096
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and 32-bit integer ALU
 # operations/s (the fp32 pipe's 67 TFLOP/s counts an FMA as two operations;
@@ -176,6 +205,26 @@ def decode_args(dec, pl, cap):
 def emit_args(dec, epl, cap):
     return (dec.tables, epl["regs"], epl["ptrs"], dec.window,
             dec.min_interval, cap)
+
+
+def longest_slice(steps: torch.Tensor) -> slice:
+    """SCALE_PLAIN_LANES consecutive lanes holding the lane of most
+    steps."""
+    L = steps.shape[0]
+    lo = max(0, min(int(torch.argmax(steps)) - SCALE_PLAIN_LANES // 2,
+                    L - SCALE_PLAIN_LANES))
+    return slice(lo, min(lo + SCALE_PLAIN_LANES, L))
+
+
+def hold_plain(kernel_res, plain_fn, lanes: slice, cap: int,
+               steps: int) -> dict:
+    """The kernel's outputs at `lanes` (the last dimension of each)
+    against plain_fn(), the plain version on those lanes, which runs
+    `steps` steps; with its seconds and seconds per step."""
+    plain, sec = timed(plain_fn)
+    return {"lanes": [lanes.start, lanes.stop], "cap": cap, "steps": steps,
+            "plain_seconds": sec, "plain_seconds_per_step": sec / steps,
+            **compare([k[..., lanes] for k in kernel_res], plain)}
 
 
 def _bound(read, written, ops) -> dict:
@@ -388,14 +437,16 @@ def codes_hit(nib: torch.Tensor) -> dict:
 
 
 def launch_counts(reset: bool = False) -> dict:
-    """The decode kernels' launch counts; reset sets them to 0 first."""
-    from webgraph_ans_torch.ops import decode_cuda, emit_cuda
+    """The kernels' launch counts; reset sets them to 0 first."""
+    from webgraph_ans_torch.ops import decode_cuda, emit_cuda, encode_cuda
     blocks, emit_k = decode_cuda.decode_blocks, emit_cuda.decode_emit
+    enc = encode_cuda.encode_blocks
     if reset:
         blocks.launches = blocks.aux_launches = emit_k.launches = 0
+        enc.launches = 0
     return {"decode_blocks": blocks.launches,
             "decode_blocks_aux": blocks.aux_launches,
-            "decode_emit": emit_k.launches}
+            "decode_emit": emit_k.launches, "encode_blocks": enc.launches}
 
 
 class PathRuns:
@@ -975,7 +1026,7 @@ def scale_out_phases(g, gb, adj, edec, runs: PathRuns, tmp: str,
 
     cnr_base = os.path.join(tmp, "cnr")
     gloo = ["--local-dryrun", str(RANKS), "--device", DEVICE,
-            "--reps", "3"]
+            "--reps", "1"]
     launcher("gloo_serial", cnr_base, gloo, 300, RANKS)
     launcher("gloo_hc", hc_base, gloo, 300, RANKS)
     for name, base in (("nccl_one_rank", cnr_base),
@@ -985,7 +1036,7 @@ def scale_out_phases(g, gb, adj, edec, runs: PathRuns, tmp: str,
             port = sock.getsockname()[1]
         launcher(name, base,
                  ["--num-processes", "1", "--backend", "nccl",
-                  "--coordinator", f"127.0.0.1:{port}", "--reps", "3"],
+                  "--coordinator", f"127.0.0.1:{port}", "--reps", "1"],
                  300, 1)
 
     # ---- 25. the dry run over SHARDS entries of the card ----
@@ -996,6 +1047,562 @@ def scale_out_phases(g, gb, adj, edec, runs: PathRuns, tmp: str,
         "bit_equal": all(c["bit_equal"] for c in cmp_blocks),
         "max_abs_err": max(c["max_abs_err"] for c in cmp_blocks)},
         "decode_emit": cmp_emit}
+
+
+def lists_of(adj, q):
+    """The input graph's lists of the nodes q, in query order."""
+    from webgraph_ans_torch.bvgraph.graph import Adjacency
+    offs = adj.offsets.astype(np.int64)
+    q = np.asarray(q, np.int64)
+    d = offs[q + 1] - offs[q]
+    out_off = np.concatenate([[0], np.cumsum(d)])
+    idx = np.repeat(offs[q] - out_off[:-1], d) + np.arange(out_off[-1])
+    return Adjacency(out_off.astype(np.uint64), adj.succs[idx])
+
+
+def scalar_split(cost, halo, safe, num_lanes, force_unsafe, target):
+    """The merged-emit planner's split as a scalar Python loop, as the JAX
+    package's _emit_bounds runs it SPLIT_PASSES times a plan (and the port
+    did before the native split): timed once on the fixture, and held
+    against the native split there."""
+    n = len(cost)
+    cost_l, halo_l = cost.tolist(), halo.tolist()
+    safe_l = [True] * n if safe is None else np.asarray(safe).tolist()
+    blist = [0]
+    acc = halo_l[0]
+    for x in range(n):
+        w = cost_l[x]
+        close = acc + w > target and safe_l[x]
+        close |= (acc + w > 1.5 * target) and force_unsafe
+        if close and x > blist[-1]:
+            if len(blist) == num_lanes:
+                return None
+            blist.append(x)
+            acc = halo_l[x]
+        acc += w
+    while len(blist) < num_lanes + 1:
+        blist.append(n)
+    return np.array(blist, np.int64)
+
+
+class Scale:
+    """The scale phases' shared state: the fixture, its two artifacts,
+    the card line, and each phase's peak device memory."""
+
+    def __init__(self, runs: PathRuns, smi: str, tmp: str):
+        self.runs, self.smi, self.tmp = runs, smi, tmp
+        self.kernels = {}
+
+    def start(self):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.base = torch.cuda.memory_allocated()
+
+    def emit(self, phase: str, dec=None, flat=None, **fields):
+        """One phase line: its fields, the peak device memory since
+        start() (and what was allocated then, earlier phases' included),
+        the artifact's bytes on the device, the largest size of each
+        int32-indexed layout as a share of 2^31, and the card."""
+        torch.cuda.synchronize()
+        extra = {"peak_device_bytes": torch.cuda.max_memory_allocated(),
+                 "allocated_at_start_bytes": self.base, "card": self.smi}
+        if dec is not None:
+            t = dec.tables
+            extra["artifact_device_bytes"] = (
+                t.lut.numel() * t.lut.element_size()
+                + t.stream.numel() * t.stream.element_size())
+        if flat is not None:
+            extra["flat_share_of_2_31"] = {k: v / 2 ** 31
+                                           for k, v in flat.items()}
+        emit(phase, graph="synth-4M", **fields, **extra)
+
+
+def _flat(*dicts) -> dict:
+    """The largest recorded size of each layout over plan dicts."""
+    out = {}
+    for d in dicts:
+        for k, v in (d or {}).get("flat_sizes", {}).items():
+            out[k] = max(out.get(k, 0), v)
+    return out
+
+
+def scale_fixture(sc: Scale):
+    """Phase 26: synth_web_graph(4,000,000, seed=7), passes 1-2 once and
+    pass 3 twice (the serial native encode; 512 blocks encoded on the
+    card), as store_layouts runs them; the encode kernel timed at the
+    block store's plan, and held against its plain version on every lane
+    of that plan at SCALE_PLAIN_CAP. Returns (adj, serial graph, block
+    graph, block CompressionResult)."""
+    from webgraph_ans_torch import ANSBvGraph
+    from webgraph_ans_torch.ans.prelude import save_pointers, save_states
+    from webgraph_ans_torch.bvgraph.store import (_build_models,
+                                                  _encode_with_models)
+    from webgraph_ans_torch.bvgraph.synth import synth_web_graph
+    from webgraph_ans_torch.ops import encode_cuda, encode_torch
+
+    sc.start()
+    adj, gen_s = timed(lambda: synth_web_graph(SYNTH_NODES, seed=SYNTH_SEED))
+    arcs = adj.num_arcs
+    seconds = {}
+    (model2, tables1, hist2), models_s = timed(lambda: _build_models(
+        adj, 7, 3, 2, False, 12, None, seconds))
+
+    def pass3(blocks, device):
+        stages = {}
+        res, sec = timed(lambda: _encode_with_models(
+            adj, model2, tables1, hist2, 7, 3, 2, blocks, None, 1 << 22,
+            device, stages))
+        base = os.path.join(sc.tmp, f"synth_b{blocks}")
+        res.prelude.save(base)
+        save_states(base, res.states)
+        save_pointers(base, res.pointers)
+        words = len(res.prelude.stream)
+        ans = os.path.getsize(base + ".ans")
+        return res, {"seconds": sec, "stage_seconds": stages,
+                     "stream_words": words, "ans_bytes": ans,
+                     "bits_per_link": ans * 8 / arcs}
+
+    res_s, serial = pass3(1, None)
+    # the block store's encode plan, kept for the kernel's time
+    plans, real_plan = [], encode_torch.encode_plan
+
+    def keep_plan(*a, **kw):
+        plans.append(real_plan(*a, **kw))
+        return plans[-1]
+
+    encode_torch.encode_plan = keep_plan
+    try:
+        (res_b, blocks), counts = sc.runs(
+            "scale block store", lambda: pass3(SCALE_BLOCKS, DEVICE),
+            ["encode_blocks"])
+    finally:
+        encode_torch.encode_plan = real_plan
+    plan = plans[-1]
+    kres = encode_cuda.encode_blocks(*encode_args(plan))
+    t_enc = cuda_ms(lambda: encode_cuda.encode_blocks(*encode_args(plan)))
+    L = plan.tstart.shape[0]
+    sc.kernels["encode_blocks"] = {
+        "lanes": L, "cap": plan.cap, "ms": t_enc,
+        **encode_bound(plan, kres[3])}
+    short = (*encode_args(plan)[:-1], SCALE_PLAIN_CAP)
+    held = hold_plain(encode_cuda.encode_blocks(*short),
+                      lambda: encode_torch.encode_blocks_plain(*short),
+                      slice(0, L), SCALE_PLAIN_CAP, SCALE_PLAIN_CAP)
+    sc.kernels["encode_blocks"]["plain"] = held
+    del plans, plan, kres, short
+    gs = ANSBvGraph(res_s.prelude, res_s.states, res_s.pointers)
+    gb = ANSBvGraph(res_b.prelude, res_b.states, res_b.pointers)
+    sc.emit("scale_fixture", source="bench.py:352-361",
+            numpy=np.__version__, nodes=adj.num_nodes, arcs=arcs,
+            generate_seconds=gen_s, passes_1_2_seconds=models_s,
+            passes_1_2_stages=seconds, serial=serial,
+            blocks={"blocks": SCALE_BLOCKS, **blocks, "launches": counts,
+                    "encode_kernel": sc.kernels["encode_blocks"]})
+    if not held["bit_equal"]:
+        raise SystemExit("scale fixture: encode_blocks differs from its "
+                         "plain version")
+    return adj, gs, gb, res_b
+
+
+def scale_token_path(sc: Scale, adj, gs) -> int:
+    """Phase 27: the token path at SCALE_LANES, cold (a fresh decoder) and
+    warm by stage, list for list; the token kernel timed on its plan and
+    held against its plain version on the lanes around the longest.
+    Returns the graph's token count."""
+    from webgraph_ans_torch import TorchGraphDecoder, reconstruct
+    from webgraph_ans_torch.ops.decode_cuda import decode_blocks
+    from webgraph_ans_torch.ops.decode_torch import fetch_block_tokens
+
+    n, arcs, mi = adj.num_nodes, adj.num_arcs, gs.prelude.min_interval_length
+    sc.start()
+
+    def path():
+        dec = TorchGraphDecoder(gs)
+        off, succs = reconstruct(*dec.decode_tokens(SCALE_LANES), n, mi)
+        cold_exact = (np.array_equal(off, adj.offsets)
+                      and np.array_equal(succs, adj.succs))
+        del off, succs
+        return dec, cold_exact
+
+    ((dec, cold_exact), cold_s), counts = sc.runs(
+        "scale token path", lambda: timed(path), ["decode_blocks"])
+    stages = {}
+    (out, cnt, cap), stages["decode_raw"] = timed(
+        lambda: dec.decode_raw(SCALE_LANES))
+    (vals, comps), stages["fetch_unpack"] = timed(
+        lambda: fetch_block_tokens(out, cnt, cap))
+    (off, succs), stages["reconstruct"] = timed(
+        lambda: reconstruct(vals, comps, n, mi))
+    warm_exact = (np.array_equal(off, adj.offsets)
+                  and np.array_equal(succs, adj.succs))
+    del out, vals, comps, off, succs
+    warm_s = sum(stages.values())
+    pl = dec.plan(SCALE_LANES)
+    args = decode_args(dec, pl, cap)
+    kres = decode_blocks(*args)
+    tokens = int(kres[1].sum())
+    sc.kernels["decode_blocks"] = {
+        "lanes": SCALE_LANES, "cap": cap,
+        "ms": cuda_ms(lambda: decode_blocks(*args)),
+        **decode_bound(dec, pl, cap, kres[1]),
+        "plain": hold_decode(dec, pl, cap, kres)}
+    del kres
+    L = len(pl["starts_np"])
+    sc.emit("scale_token_path", dec=dec, lanes=L, cap=cap,
+            cold_seconds=cold_s, cold_ns_per_arc=cold_s * 1e9 / arcs,
+            warm_seconds=warm_s, warm_ns_per_arc=warm_s * 1e9 / arcs,
+            warm_stages=stages, exact=cold_exact and warm_exact,
+            launches=counts, kernel=sc.kernels["decode_blocks"],
+            token_layout_share_of_2_31=(cap + cap // 8) * L / 2 ** 31)
+    if not (cold_exact and warm_exact):
+        raise SystemExit("scale token path: lists differ from the input")
+    if not sc.kernels["decode_blocks"]["plain"]["bit_equal"]:
+        raise SystemExit("scale token path: decode_blocks differs from its "
+                         "plain version")
+    return tokens
+
+
+def hold_decode(dec, pl, cap, kres, emit_aux: bool = False) -> dict:
+    """decode_blocks' outputs kres on the plan pl against the plain
+    version on the lanes around the one of most steps, at the same cap."""
+    from webgraph_ans_torch.ops.decode_torch import decode_blocks_plain
+    sl = longest_slice(kres[1])
+    args = (dec.tables, *(pl[k][sl] for k in ("states", "ptrs", "starts",
+                                               "ends", "ring")),
+            dec.window, dec.min_interval, cap)
+    return hold_plain(kres, lambda: decode_blocks_plain(
+        *args, emit_aux=emit_aux), sl, cap, int(kres[1][sl].max()))
+
+
+def emit_to_steady(sc: Scale, dec, adj, name: str, host: dict):
+    """decode_to_adjacency_device at SCALE_LANES until the plan is
+    verified, then five steady calls, each checked list for list; the
+    first call's last kernel launch (its plan, before the rebalance)
+    timed alone. Returns (the per-call records, the steady records, the
+    first call's kernel, the plan)."""
+    from webgraph_ans_torch.ops import emit_cuda
+
+    arcs = adj.num_arcs
+    calls, pl, first = [], {}, {}
+    raw = dec.decode_emit_raw
+
+    def keep_first(*a, **kw):
+        res = raw(*a, **kw)
+        if not first:
+            p = dec._plans[("emit", SCALE_LANES)]
+            first.update(
+                args=emit_args(dec, p, res[3]), lanes=len(p["starts_np"]),
+                empty_lanes=int(np.sum(p["starts_np"] >= p["ends_np"])),
+                cap=res[3], T=p["T"])
+        return res
+
+    dec.decode_emit_raw = keep_first
+    for i in range(6):
+        for k in host:
+            host[k] = [] if k == "caps" else 0.0
+        (res3, sec), counts = sc.runs(f"{name} call {i}", lambda: timed(
+            lambda: dec.decode_to_adjacency_device(SCALE_LANES)), [])
+        pl = dec._plans[("emit", SCALE_LANES)]
+        mc = pl.get("post_meta", {})
+        calls.append({
+            "seconds": sec, "caps": list(host["caps"]),
+            "host_planner_seconds": {k: v for k, v in host.items()
+                                     if k != "caps"},
+            "lanes": len(pl["starts_np"]),
+            "empty_lanes": int(np.sum(pl["starts_np"] >= pl["ends_np"])),
+            "T": pl.get("T"),
+            "dirty_nodes": (int(np.sum(mc["pdirty_np"]))
+                            if "pdirty_np" in mc else None),
+            "verified": bool(pl.get("verified")),
+            "exact": adjacency_exact(res3, adj), "launches": counts})
+        del res3
+        if i == 0:
+            fargs = first.pop("args")
+            first["ms"] = cuda_ms(lambda: emit_cuda.decode_emit(
+                *fargs, T=first["T"]))
+            del fargs
+        if pl.get("verified") and "fx_offs" in mc:
+            break
+    results, counts = sc.runs(f"{name} steady", lambda: [timed(
+        lambda: dec.decode_to_adjacency_device(SCALE_LANES))
+        for _ in range(5)], ["decode_emit"])
+    steady_exact = all(adjacency_exact(r, adj) for r, _ in results)
+    steady_s = statistics.median(t for _, t in results)
+    del results
+    t_dev = cuda_ms(lambda: dec.decode_to_adjacency_device(SCALE_LANES))
+    steady = {"seconds": steady_s, "exact": steady_exact,
+              "device_ms": t_dev,
+              "device_ns_per_arc": t_dev["median"] * 1e6 / arcs,
+              "launches": counts,
+              **emit_cuda.launch_geometry(dec.window, pl["T"])}
+    if not (all(c["exact"] for c in calls) and steady_exact
+            and pl.get("verified") and not pl.get("emit_broken")):
+        raise SystemExit(f"{name}: lists differ from the input, or the plan "
+                         "never verified")
+    return calls, steady, first, pl
+
+
+def emit_kernel_scale(dec, pl, tokens: int, short: bool = False) -> dict:
+    """decode_emit timed on a verified plan (mark_deg), with its bound,
+    and held against its plain version: on the lanes around the one of
+    most rows at the plan's cap, or (short) on every lane at
+    SCALE_PLAIN_CAP."""
+    from webgraph_ans_torch.ops.emit_cuda import decode_emit
+    from webgraph_ans_torch.ops.emit_torch import decode_emit_plain
+    T = pl["T"]
+    eargs = emit_args(dec, pl, pl["cap"])
+    ek = decode_emit(*eargs, T=T, mark_deg=True)
+    out = {"lanes": len(pl["starts_np"]), "cap": pl["cap"], "T": T,
+           "ms": cuda_ms(lambda: decode_emit(*eargs, T=T, mark_deg=True)),
+           **emit_bound(dec, pl, pl["cap"], ek[3], tokens)}
+    if short:
+        cap, sl = SCALE_PLAIN_CAP, slice(0, out["lanes"])
+        sargs = emit_args(dec, pl, cap)
+        ek, steps = decode_emit(*sargs, T=T, mark_deg=True), cap
+    else:
+        cap, sl = pl["cap"], longest_slice(ek[3])
+        sargs = (dec.tables, pl["regs"][:, sl].contiguous(), pl["ptrs"][sl],
+                 dec.window, dec.min_interval, cap)
+        steps = int(ek[3][sl].max())
+    out["plain"] = hold_plain(ek, lambda: decode_emit_plain(
+        *sargs, T=T, mark_deg=True), sl, cap, steps)
+    return out
+
+
+def timing_hooks(dec, host: dict):
+    """Adds the host seconds of the decoder's planner steps into host, and
+    lists the caps its merged-emit launches ran at in host["caps"]."""
+    for key in ("_emit_bounds", "_safe_boundaries"):
+        fn = getattr(dec, key)
+        host[key] = 0.0
+
+        def run(*a, _fn=fn, _key=key, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                host[_key] += time.perf_counter() - t0
+
+        setattr(dec, key, run)
+    raw = dec.decode_emit_raw
+    host["caps"] = []
+
+    def emit_raw(*a, **kw):
+        res = raw(*a, **kw)
+        host["caps"].append(res[3])
+        return res
+
+    dec.decode_emit_raw = emit_raw
+
+
+def scale_emit(sc: Scale, adj, gs, tokens: int):
+    """Phase 28: the merged emit at SCALE_LANES on the serial artifact,
+    through the rebalance and refinement into the steady state, with the
+    planner's host seconds a call; one pass of the split as the scalar
+    Python loop against the native split on the last plan's inputs.
+    Returns the decoder (random access reuses its verified plan)."""
+    from webgraph_ans_torch import TorchGraphDecoder
+    from webgraph_ans_torch.ops import graph_decode
+
+    sc.start()
+    dec = TorchGraphDecoder(gs)
+    host = {}
+    timing_hooks(dec, host)
+    last, native_split = {}, graph_decode.emit_split
+
+    def keep_args(*a):
+        last["args"] = a
+        return native_split(*a)
+
+    graph_decode.emit_split = keep_args
+    try:
+        calls, steady, first, pl = emit_to_steady(sc, dec, adj,
+                                                  "scale merged emit", host)
+    finally:
+        graph_decode.emit_split = native_split
+    want, py_s = timed(lambda: scalar_split(*last["args"]))
+    got, nat_s = timed(lambda: native_split(*last["args"]))
+    split = {"nodes": adj.num_nodes, "python_one_pass_seconds": py_s,
+             "native_one_pass_seconds": nat_s,
+             "passes_per_plan": SPLIT_PASSES,
+             "bounds_equal": got is not None and want is not None
+             and np.array_equal(got, want)}
+    sc.kernels["decode_emit"] = emit_kernel_scale(dec, pl, tokens)
+    sc.kernels["decode_emit"]["first_call"] = first
+    sc.emit("scale_merged_emit", dec=dec,
+            flat=_flat(pl, dec._plans.get(2048)), calls=calls,
+            steady=steady, split=split, kernel=sc.kernels["decode_emit"])
+    if not split["bounds_equal"]:
+        raise SystemExit("scale merged emit: the native split differs from "
+                         "the scalar loop")
+    if not sc.kernels["decode_emit"]["plain"]["bit_equal"]:
+        raise SystemExit("scale merged emit: decode_emit differs from its "
+                         "plain version")
+    return dec
+
+
+def sort_path_runs(dec, adj, name: str, runs: PathRuns, reps: int = 4):
+    """decode_to_csr_device at SCALE_LANES, cold then warm, each call
+    checked list for list."""
+    def calls():
+        out = []
+        for _ in range(reps):
+            res, sec = timed(lambda: dec.decode_to_csr_device(SCALE_LANES))
+            out.append({"seconds": sec, "exact": csr_exact(*res, adj)})
+            del res
+        return out
+
+    got, counts = runs(name, calls, ["decode_blocks_aux"])
+    if not all(c["exact"] for c in got):
+        raise SystemExit(f"{name}: the CSR differs from the input graph")
+    return {"cold_seconds": got[0]["seconds"],
+            "warm_seconds": [c["seconds"] for c in got[1:]],
+            "warm_ns_per_arc": statistics.median(
+                c["seconds"] for c in got[1:]) * 1e9 / adj.num_arcs,
+            "exact": True, "launches": counts}
+
+
+def scale_sort_path(sc: Scale, adj, gs):
+    """Phase 29: the sort path at SCALE_LANES on the serial artifact; the
+    aux-mode kernel timed on its plan and held against its plain version
+    on the lanes around the longest."""
+    from webgraph_ans_torch import TorchGraphDecoder
+    from webgraph_ans_torch.ops.decode_cuda import decode_blocks
+
+    sc.start()
+    dec = TorchGraphDecoder(gs)
+    res = sort_path_runs(dec, adj, "scale sort path", sc.runs)
+    pl = dec.plan(SCALE_LANES)
+    out, _, acap = dec.decode_raw(SCALE_LANES, emit_aux=True)
+    del out
+    aargs = decode_args(dec, pl, acap)
+    akres = decode_blocks(*aargs, emit_aux=True)
+    sc.kernels["decode_blocks_aux"] = {
+        "lanes": SCALE_LANES, "cap": acap,
+        "ms": cuda_ms(lambda: decode_blocks(*aargs, emit_aux=True)),
+        **decode_bound(dec, pl, acap, akres[1], aux=True),
+        "plain": hold_decode(dec, pl, acap, akres, emit_aux=True)}
+    del akres
+    sc.emit("scale_sort_path", dec=dec, flat=_flat(pl, pl.get("recon_meta")),
+            lanes=len(pl["starts_np"]), cap=acap, **res,
+            kernel=sc.kernels["decode_blocks_aux"])
+    if not sc.kernels["decode_blocks_aux"]["plain"]["bit_equal"]:
+        raise SystemExit("scale sort path: decode_blocks (aux) differs from "
+                         "its plain version")
+
+
+def scale_blocks(sc: Scale, adj, gb, res_b, tokens: int):
+    """Phase 30: the 512-block artifact: the merged emit into its steady
+    state (one lane per block-delimited range, none empty; the first
+    call's kernel, on its stream-balanced lanes, timed beside the steady
+    one), the sort path, and the native sequential reader."""
+    from webgraph_ans_torch import TorchGraphDecoder
+    from webgraph_ans_torch.bvgraph.sequential import ANSBvGraphSeq
+
+    sc.start()
+    dec = TorchGraphDecoder(gb)
+    host = {}
+    timing_hooks(dec, host)
+    calls, steady, first, pl = emit_to_steady(sc, dec, adj,
+                                              "scale blocks emit", host)
+    ranges = len(np.unique(np.concatenate(
+        [[0], np.asarray(gb.prelude.blocks[0], np.int64),
+         [adj.num_nodes]]))) - 1
+    one_lane_a_block = (len(pl["starts_np"]) == ranges
+                        and bool(np.all(pl["starts_np"] < pl["ends_np"])))
+    sc.kernels["decode_emit_blocks"] = emit_kernel_scale(dec, pl, tokens,
+                                                         short=True)
+    sc.kernels["decode_emit_blocks"]["first_call"] = first
+    sdec = TorchGraphDecoder(gb)
+    sort = sort_path_runs(sdec, adj, "scale blocks sort path", sc.runs,
+                          reps=2)
+    spl = sdec.plan(SCALE_LANES)
+    flat = _flat(pl, dec._plans.get(2048), spl, spl.get("recon_meta"))
+    del sdec, spl
+    seq, seq_s = timed(lambda: ANSBvGraphSeq(res_b.prelude).decode_all())
+    seq_exact = adjacency_equal(seq, adj)
+    del seq
+    sc.emit("scale_blocks", dec=dec, flat=flat, blocks=SCALE_BLOCKS,
+            block_ranges=ranges, merged_emit={
+                "calls": calls, "steady": steady,
+                "one_lane_a_block": one_lane_a_block,
+                "kernel": sc.kernels["decode_emit_blocks"]},
+            sort_path=sort,
+            sequential={"seconds": seq_s, "exact": seq_exact})
+    del dec
+    if not (one_lane_a_block and seq_exact
+            and sc.kernels["decode_emit_blocks"]["plain"]["bit_equal"]):
+        raise SystemExit("scale blocks: the emit plan is not one lane a "
+                         "block, the sequential reader's lists differ, or "
+                         "decode_emit differs from its plain version")
+
+
+def scale_random_access(sc: Scale, adj, gs, edec):
+    """Phase 31: random access with seeded uniform queries, as phase 18:
+    the wave decode (10,000), the CSR server (build, then 1,000,000) and
+    per-query merged-emit lanes (4,096, with their rounds), each batch
+    list for list against the input graph."""
+    from webgraph_ans_torch import (TorchCsrServer, TorchEmitRandomAccess,
+                                    TorchGraphDecoder, TorchRandomAccess)
+
+    n = adj.num_nodes
+    rng = np.random.default_rng(2026)
+    sc.start()
+    ra = TorchRandomAccess(TorchGraphDecoder(gs))
+    wave = []
+    for _ in range(2):
+        q = rng.integers(0, n, 10_000)
+        (got, sec), counts = sc.runs("scale wave random access", lambda: timed(
+            lambda: ra.successors_batch(q)), ["decode_blocks"])
+        wave.append({"seconds": sec, "arcs": len(got.succs),
+                     "ns_per_arc": sec * 1e9 / max(len(got.succs), 1),
+                     "waves": ra.last_waves, "launches": counts,
+                     "exact": adjacency_equal(got, lists_of(adj, q))})
+    del ra
+    (srv, build_s), counts = sc.runs("scale CSR server", lambda: timed(
+        lambda: TorchCsrServer(TorchGraphDecoder(gs),
+                               num_lanes=SCALE_LANES)),
+        ["decode_blocks_aux"])
+    q = rng.integers(0, n, 1_000_000)
+    got = srv.successors_batch(q)
+    csr = {"build_seconds": build_s, "build_launches": counts,
+           "queries": len(q), "arcs": len(got.succs),
+           "batch_seconds": [timed(lambda: srv.serve(q))[1]
+                             for _ in range(3)],
+           "exact": adjacency_equal(got, lists_of(adj, q))}
+    del srv, got
+    era = TorchEmitRandomAccess(edec)
+    emit_b = []
+    for _ in range(2):
+        q = rng.integers(0, n, 4096)
+        (got, sec), counts = sc.runs("scale emit random access",
+                                     lambda: timed(
+                                         lambda: era.successors_batch(q)),
+                                     ["decode_emit"])
+        emit_b.append({"seconds": sec, "arcs": len(got.succs),
+                       "rounds": era.last_rounds,
+                       "unclean_to_wave": era.last_unclean,
+                       "launches": counts,
+                       "exact": adjacency_equal(got, lists_of(adj, q))})
+    sc.emit("scale_random_access", dec=edec, wave_10000=wave,
+            csr_server=csr, emit_4096=emit_b)
+    if not (all(w["exact"] for w in wave) and csr["exact"]
+            and all(b["exact"] for b in emit_b)):
+        raise SystemExit("scale random access: a batch differs from the "
+                         "input graph")
+
+
+def scale_phases(runs: PathRuns, smi: str, tmp: str) -> dict:
+    """Phases 26-31: every single-device path on the JAX bench's fixture.
+    Returns each kernel's time and bound at the fixture's shapes."""
+    sc = Scale(runs, smi, tmp)
+    adj, gs, gb, res_b = scale_fixture(sc)
+    tokens = scale_token_path(sc, adj, gs)
+    edec = scale_emit(sc, adj, gs, tokens)
+    scale_sort_path(sc, adj, gs)
+    scale_blocks(sc, adj, gb, res_b, tokens)
+    scale_random_access(sc, adj, gs, edec)
+    return sc.kernels
 
 
 def main() -> int:
@@ -1506,11 +2113,19 @@ def main() -> int:
         # ---- 20-25. scale-out: shards on the card, ranks over gloo and
         # NCCL ----
         so_cmp = scale_out_phases(g, gb, adj, edec, runs, tmp, hc_base)
+        del g, gb, adj, edec
+
+        # ---- 26-31. every single-device path on the JAX bench's
+        # 4M-node synthetic fixture ----
+        scale = scale_phases(runs, smi, tmp)
 
     if spills:
         raise SystemExit(f"kernel instances spill registers: {spills}")
 
-    # ---- 26. the kernels line: launches summed over every path ----
+    # ---- 32. the kernels line: launches summed over every path; each
+    # kernel's time and bound at the scale phases' shapes beside; its
+    # holds against the plain version at cnr-2000's and those shapes ----
+    held = {k: v["plain"] for k, v in scale.items()}
     kernels = [{
         "name": "decode_blocks", "route": "cuda",
         "source": "webgraph_ans_torch/csrc/decode_blocks.cu",
@@ -1518,25 +2133,31 @@ def main() -> int:
         "launches": launches + runs.total["decode_blocks"],
         "bit_equal": (cmp_cnr["bit_equal"]
                       and ra_cmp["decode_blocks"]["bit_equal"]
-                      and so_cmp["decode_blocks"]["bit_equal"]),
+                      and so_cmp["decode_blocks"]["bit_equal"]
+                      and held["decode_blocks"]["bit_equal"]),
         "max_abs_err": max(cmp_cnr["max_abs_err"],
                            ra_cmp["decode_blocks"]["max_abs_err"],
-                           so_cmp["decode_blocks"]["max_abs_err"]),
+                           so_cmp["decode_blocks"]["max_abs_err"],
+                           held["decode_blocks"]["max_abs_err"]),
         "ms": t_k["median"],
         "plain_ms": plain_s * 1e3, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": None,
         "lanes": LANES, "ms_32768_lanes": t_w["median"],
+        "scale": scale["decode_blocks"],
     }, {
         "name": "decode_blocks_aux", "route": "cuda",
         "source": "webgraph_ans_torch/csrc/decode_blocks.cu",
         "replaces": "webgraph_ans_tpu/ops/decode_pallas.py:440",
         "launches": (path_launches["decode_blocks_aux"]
                      + runs.total["decode_blocks_aux"]),
-        "bit_equal": cmp_aux["bit_equal"],
-        "max_abs_err": cmp_aux["max_abs_err"], "ms": t_aux["median"],
+        "bit_equal": (cmp_aux["bit_equal"]
+                      and held["decode_blocks_aux"]["bit_equal"]),
+        "max_abs_err": max(cmp_aux["max_abs_err"],
+                           held["decode_blocks_aux"]["max_abs_err"]),
+        "ms": t_aux["median"],
         "plain_ms": aplain_s * 1e3, "bound_ms": abound["bound_ms"],
         "bound_by": abound["bound_by"], "library_ms": None,
-        "lanes": EMIT_LANES,
+        "lanes": EMIT_LANES, "scale": scale["decode_blocks_aux"],
     }, {
         "name": "decode_emit", "route": "cuda",
         "source": "webgraph_ans_torch/csrc/decode_emit.cu",
@@ -1544,23 +2165,34 @@ def main() -> int:
         "launches": path_launches["decode_emit"] + runs.total["decode_emit"],
         "bit_equal": (cmp_emit["bit_equal"]
                       and ra_cmp["decode_emit"]["bit_equal"]
-                      and so_cmp["decode_emit"]["bit_equal"]),
+                      and so_cmp["decode_emit"]["bit_equal"]
+                      and held["decode_emit"]["bit_equal"]
+                      and held["decode_emit_blocks"]["bit_equal"]),
         "max_abs_err": max(cmp_emit["max_abs_err"],
                            ra_cmp["decode_emit"]["max_abs_err"],
-                           so_cmp["decode_emit"]["max_abs_err"]),
+                           so_cmp["decode_emit"]["max_abs_err"],
+                           held["decode_emit"]["max_abs_err"],
+                           held["decode_emit_blocks"]["max_abs_err"]),
         "ms": t_emit["median"],
         "plain_ms": eplain_s * 1e3, "bound_ms": ebound["bound_ms"],
         "bound_by": ebound["bound_by"], "library_ms": None,
         "lanes": len(epl["starts_np"]), **geometry,
+        "scale": {"serial": scale["decode_emit"],
+                  "blocks": scale["decode_emit_blocks"]},
     }, {
         "name": "encode_blocks", "route": "cuda",
         "source": "webgraph_ans_torch/csrc/encode_blocks.cu",
         "replaces": "webgraph_ans_tpu/ops/encode_pallas.py:291",
-        "launches": enc_launches, "bit_equal": cmp_enc["bit_equal"],
-        "max_abs_err": cmp_enc["max_abs_err"], "ms": t_enc["median"],
+        "launches": enc_launches + runs.total["encode_blocks"],
+        "bit_equal": (cmp_enc["bit_equal"]
+                      and held["encode_blocks"]["bit_equal"]),
+        "max_abs_err": max(cmp_enc["max_abs_err"],
+                           held["encode_blocks"]["max_abs_err"]),
+        "ms": t_enc["median"],
         "plain_ms": enc_plain_s * 1e3, "bound_ms": enc_bound["bound_ms"],
         "bound_by": enc_bound["bound_by"], "library_ms": None,
         "lanes": cplan.tstart.shape[0], **enc_geometry,
+        "scale": scale["encode_blocks"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """The port's merged-emit pipeline, TorchGraphDecoder.
 decode_to_adjacency_device, on the CPU (plain versions of the kernels):
-its planner against the JAX package's on the same artifacts, and the
-whole path against the input graph, through the verified steady state.
+its planner against the JAX package's on the same artifacts, its native
+lane split against the planner's scalar loop, its int32 layout guard, and
+the whole path against the input graph, through the verified steady state.
 
 Artifacts are written by the JAX package and read by both packages'
 loaders. The JAX planner runs as its own
@@ -11,6 +12,7 @@ and compared exactly (tolerance 0).
 
 import dataclasses
 import logging
+import re
 
 import numpy as np
 import pytest
@@ -23,7 +25,8 @@ from webgraph_ans_tpu.bvgraph.store import compress_adjacency
 from webgraph_ans_tpu.bvgraph.synth import synth_web_graph
 from webgraph_ans_tpu.ops.graph_decode import TpuGraphDecoder
 from webgraph_ans_torch.bvgraph.random_access import ANSBvGraph as TorchGraph
-from webgraph_ans_torch.ops import emit_cuda, emit_post, emit_torch, graph_decode
+from webgraph_ans_torch.ops import (emit_cuda, emit_post, emit_torch,
+                                    graph_decode, reconstruct_device)
 from webgraph_ans_torch.ops.cuda_build import KernelError
 from webgraph_ans_torch.ops.graph_decode import TorchGraphDecoder
 import jax_native_build
@@ -91,13 +94,17 @@ def _summary_jax(jdec):
     return pl, regs
 
 
-def _check_plans(jdec, tdec):
+def _check_plans(jdec, tdec, drop_empty=False):
     """Same lane bounds, halo starts, ring depth, step cap and register
-    file (but the pointer row, which the port keeps apart)."""
+    file (but the pointer row, which the port keeps apart). drop_empty:
+    the port's plan is the JAX plan without its empty lanes."""
     jpl, jregs = _summary_jax(jdec)
     tpl = tdec._emit_plan(LANES)
-    np.testing.assert_array_equal(tpl["starts_np"], jpl["starts_np"])
-    np.testing.assert_array_equal(tpl["ends_np"], jpl["ends_np"])
+    keep_l = (jpl["starts_np"] < jpl["ends_np"] if drop_empty
+              else np.ones(len(jpl["starts_np"]), bool))
+    jregs = jregs[:, torch.from_numpy(keep_l)]
+    np.testing.assert_array_equal(tpl["starts_np"], jpl["starts_np"][keep_l])
+    np.testing.assert_array_equal(tpl["ends_np"], jpl["ends_np"][keep_l])
     np.testing.assert_array_equal(tpl["hstarts_np"],
                                   jregs[emit_torch.D_X].numpy())
     assert tpl["T"] == jpl["T"] and tpl["cap"] == jpl["cap"]
@@ -114,12 +121,33 @@ def _replan(dec, keys, **state):
     pl.update(state)
 
 
+def _plan_lists(adj, tdec):
+    """The port's lists decoded on its current emit plan, against the
+    input graph."""
+    val, xch, nib, _ = tdec.decode_emit_raw(LANES)
+    pl = tdec._emit_plan(LANES)
+    lens = pl["ends_np"] - pl["starts_np"]
+    lane_of = np.repeat(np.arange(len(lens), dtype=np.int32), lens)
+    _assert_lists(adj, *emit_post.postprocess(val, xch, nib, lane_of,
+                                              pl["starts_np"],
+                                              adj.num_nodes)[:3])
+
+
 @pytest.mark.parametrize("name", list(ARTIFACTS))
 def test_emit_planner_matches_jax(artifacts, name, xla_decoder):
     """First plan, the plan rebalanced on known degrees and safe
     boundaries, and the plan refined on per-node work: equal in both
-    packages, as are the safe boundaries themselves."""
+    packages, as are the safe boundaries themselves.
+
+    On the block-encoded artifact the rebalanced and refined plans are
+    compared through the lists: there every encode-block start bounds a
+    lane and no lane crosses one, so the port plans one lane per
+    block-delimited range with no bisection, while the JAX planner
+    bisects and snaps its bounds to the block starts, padding the same
+    lanes with empty ones. So the port's plan is the JAX plan without its
+    empty lanes, and its lists are the input graph's."""
     adj, base = artifacts[name]
+    blocks = ARTIFACTS[name][2].get("encode_blocks", 1) > 1
     jdec = TpuGraphDecoder(JaxGraph.load(base))
     tdec = TorchGraphDecoder(TorchGraph.load(base), device="cpu")
     _check_plans(jdec, tdec)
@@ -131,12 +159,206 @@ def test_emit_planner_matches_jax(artifacts, name, xla_decoder):
             safe_np=safe)
     _replan(tdec, ("regs", "cap", "bounds"), degs_np=degs,
             safe_np=safe.copy())
-    _check_plans(jdec, tdec)
+    _check_plans(jdec, tdec, drop_empty=blocks)
+    if blocks:
+        _plan_lists(adj, tdec)
 
     work = degs.astype(np.float64) + 2.5 + (np.arange(len(degs)) % 3)
     _replan(jdec, ("init", "slab", "cap", "bounds"), node_work=work)
     _replan(tdec, ("regs", "cap", "bounds"), node_work=work.copy())
-    _check_plans(jdec, tdec)
+    _check_plans(jdec, tdec, drop_empty=blocks)
+    if blocks:
+        _plan_lists(adj, tdec)
+
+
+def _split_spec(cost, halo, safe, num_lanes, force_unsafe, target):
+    """The planner's split as the JAX package writes it
+    (webgraph_ans_tpu/ops/graph_decode.py, _emit_bounds), a scalar loop
+    over the nodes in Python floats: the specification of emit_split."""
+    n = len(cost)
+    cost_l, halo_l = cost.tolist(), halo.tolist()
+    safe_l = [True] * n if safe is None else np.asarray(safe).tolist()
+    blist = [0]
+    acc = halo_l[0]
+    for x in range(n):
+        w = cost_l[x]
+        close = acc + w > target and safe_l[x]
+        close |= (acc + w > 1.5 * target) and force_unsafe
+        if close and x > blist[-1]:
+            if len(blist) == num_lanes:
+                return None
+            blist.append(x)
+            acc = halo_l[x]
+        acc += w
+    while len(blist) < num_lanes + 1:
+        blist.append(n)
+    return np.array(blist, np.int64)
+
+
+def _split_case(seed, refined, masked, halo_on):
+    """Planner inputs of a seeded 600-node graph: integer costs (elements
+    + 2 a node) or refined ones (each of 40 lanes' observed extra rows
+    spread over its nodes, as the refinement does); a safe mask with long
+    unsafe stretches, or none; the halo sums of a window-7 halo, or
+    zeros."""
+    rng = np.random.default_rng(seed)
+    n = 600
+    degs = np.minimum(rng.zipf(1.6, n), 400).astype(np.int64)
+    degs[rng.random(n) < 0.1] = 0
+    offs = np.concatenate([[0], np.cumsum(degs)])
+    if refined:
+        nw = degs.astype(np.float64)
+        cuts = np.unique(np.concatenate([[0, n], rng.integers(0, n, 40)]))
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            # the refinement's form: a lane's extra rows over its nodes
+            nw[a:b] += float(rng.integers(0, 7 * (b - a) + 1)) / (b - a)
+        work = np.concatenate([[0.0], np.cumsum(nw)])
+    else:
+        work = offs + 2.0 * np.arange(n + 1)
+    Hsp = 28 if halo_on else 0
+    halo = (offs - offs[np.maximum(np.arange(n + 1) - Hsp, 0)]) \
+        .astype(np.float64)
+    safe = None
+    if masked:
+        safe = rng.random(n) < 0.4
+        for a in rng.integers(0, n - 60, 4):
+            safe[a:a + 60] = False
+    return np.diff(work), halo, safe, work, degs
+
+
+@pytest.mark.parametrize("force_unsafe", [False, True])
+@pytest.mark.parametrize("halo_on", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("refined", [False, True])
+def test_emit_split_matches_scalar_loop(refined, masked, halo_on,
+                                        force_unsafe):
+    """The native split gives the scalar loop's bounds, bound for bound,
+    or refuses where it refuses: at every target of the planner's own
+    bisection, at integer targets (ties with integer cost sums), and at
+    lane counts from 1 to more than the nodes."""
+    seed = 8 * refined + 4 * masked + 2 * halo_on + force_unsafe
+    cost, halo, safe, work, degs = _split_case(seed, refined, masked,
+                                               halo_on)
+    n = len(cost)
+    for lanes in (1, 2, 7, 64, n, n + 9):
+        lo = float(work[-1]) / lanes
+        hi = lo * 8 + float(np.max(degs) + halo.max()) + 4096
+        targets = [0.0, 1.0, float(work[-1]), 1e300]
+        for _ in range(40):
+            mid = (lo + hi) / 2
+            targets.append(mid)
+            if _split_spec(cost, halo, safe, lanes, force_unsafe,
+                           mid) is None:
+                lo = mid
+            else:
+                hi = mid
+        targets += [hi, float(np.floor(hi)), float(np.ceil(hi)),
+                    float(np.floor(2 * hi / 3))]
+        for t in targets:
+            want = _split_spec(cost, halo, safe, lanes, force_unsafe, t)
+            got = graph_decode.emit_split(cost, halo, safe, lanes,
+                                          force_unsafe, t)
+            if want is None:
+                assert got is None, (lanes, t)
+            else:
+                assert got is not None, (lanes, t)
+                np.testing.assert_array_equal(got, want,
+                                              err_msg=f"{lanes} {t}")
+
+
+def test_block_plan_one_lane_per_block(artifacts, xla_decoder):
+    """On the block-encoded artifact the rebalanced and refined plans have
+    one lane per block-delimited range and no empty lane, at LANES and at
+    4 * LANES, and every call's lists equal the JAX package's
+    decode_to_adjacency_device."""
+    adj, base = artifacts["blocks4_sampled3"]
+    g = TorchGraph.load(base)
+    bounds = np.unique(np.concatenate(
+        [[0], np.asarray(g.prelude.blocks[0], np.int64), [adj.num_nodes]]))
+    want = adj.to_lists()
+    for lanes in (LANES, 4 * LANES):
+        jax_lists = emit_post.to_host_lists(*(
+            torch.from_numpy(np.array(a)) for a in TpuGraphDecoder(
+                JaxGraph.load(base)).decode_to_adjacency_device(lanes)),
+            adj.num_nodes)
+        assert [x.tolist() for x in jax_lists] == want
+        dec = TorchGraphDecoder(g, device="cpu")
+        plans = []
+        for _ in range(4):
+            got = emit_post.to_host_lists(
+                *dec.decode_to_adjacency_device(lanes), adj.num_nodes)
+            assert [x.tolist() for x in got] == want
+            pl = dec._plans[("emit", lanes)]
+            plans.append((pl["starts_np"].copy(), pl["ends_np"].copy()))
+        assert pl.get("verified") and "node_work" in pl
+        for starts, ends in plans[1:]:     # rebalanced, refined, steady
+            np.testing.assert_array_equal(starts, bounds[:-1])
+            np.testing.assert_array_equal(ends, bounds[1:])
+        assert pl["ptrs"].shape[0] == len(bounds) - 1
+        assert pl["regs"].shape[1] == len(bounds) - 1
+
+
+def _guarded_call(dec, layout):
+    """(the call that plans `layout` on a fresh decoder, the dict where it
+    records the layout's size after the call)."""
+    if layout.startswith("aux"):
+        return (lambda: dec.decode_to_csr_device(LANES),
+                lambda: dec.plan(LANES)["flat_sizes"])
+    if layout.startswith("merged"):
+        return (lambda: dec.decode_to_adjacency_device(LANES),
+                lambda: dec._plans[("emit", LANES)]["flat_sizes"])
+    out, _, cap = dec.decode_raw(LANES, emit_aux=True)
+    mc = {}
+    return (lambda: reconstruct_device.reconstruct_device(
+        out, dec.num_nodes, dec.num_arcs, cap, mc),
+        lambda: mc["flat_sizes"])
+
+
+@pytest.mark.parametrize("layout", [
+    "aux-mode decode [3cap + cap//8, L]", "merged-emit [cap, L]",
+    "merged-emit marker rows [cap << 6]",
+    "sort-path element space [2 Epad + Ccap]"])
+def test_layout_guard_names_the_layout(artifacts, layout, monkeypatch):
+    """Each layout addressed by int32 flat indices records its size where
+    it is planned, and raises ValueError naming itself, instead of
+    wrapping, once the limit is not above that size."""
+    _, base = artifacts["serial"]
+    call, sizes = _guarded_call(
+        TorchGraphDecoder(TorchGraph.load(base), device="cpu"), layout)
+    call()
+    size = sizes()[layout]
+    assert 0 < size < reconstruct_device.FLAT_LIMIT
+    limit = size
+    if "marker rows" in layout:
+        # a limit the [cap, L] channels stay under
+        limit = sizes()["merged-emit [cap, L]"] + 1
+        assert limit <= size
+    call, _ = _guarded_call(
+        TorchGraphDecoder(TorchGraph.load(base), device="cpu"), layout)
+    monkeypatch.setattr(reconstruct_device, "FLAT_LIMIT", limit)
+    with pytest.raises(ValueError, match=re.escape(layout)):
+        call()
+
+
+def test_layout_guard_propagates_from_safe_boundaries(artifacts,
+                                                      monkeypatch):
+    """The first call's safe boundaries decode the graph once in aux mode
+    at 2048 lanes. Past the int32 limit that decode's ValueError, naming
+    the aux layout, leaves decode_to_adjacency_device: it is not taken
+    for a failed safe-boundary computation (the halo fallback)."""
+    _, base = artifacts["serial"]
+    aux = "aux-mode decode [3cap + cap//8, L]"
+    dec = TorchGraphDecoder(TorchGraph.load(base), device="cpu")
+    dec.decode_to_adjacency_device(LANES)
+    assert dec._plans[("emit", LANES)].get("safe_np") is not None
+    size = dec.plan(2048)["flat_sizes"][aux]
+    # a limit the first call's merged-emit layouts stay under
+    assert max(dec._plans[("emit", LANES)]["flat_sizes"].values()) < size
+    monkeypatch.setattr(reconstruct_device, "FLAT_LIMIT", size)
+    dec = TorchGraphDecoder(TorchGraph.load(base), device="cpu")
+    with pytest.raises(ValueError, match=re.escape(aux)):
+        dec.decode_to_adjacency_device(LANES)
+    assert "safe_np" not in dec._plans[("emit", LANES)]
 
 
 def _assert_lists(adj, s2d, st, dg):

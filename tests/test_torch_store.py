@@ -105,3 +105,17 @@ def test_port_load_bvgraph_matches_input():
     adj, props = load_bvgraph(CNR)
     assert adj.num_nodes == props.nodes == 325557
     assert adj.num_arcs == props.arcs == 3216152
+
+
+@pytest.mark.parametrize("n, seed", [(1, 0), (5, 1), (1000, 4),
+                                     (20000, 7)])
+def test_synth_web_graph_matches_jax(n, seed):
+    """The port's synthetic web graph is the JAX package's, arc for arc
+    (its duplicate removal is a sort and an adjacent-duplicate mask, the
+    JAX copy's np.unique)."""
+    from webgraph_ans_torch.bvgraph.synth import synth_web_graph as tsynth
+    from webgraph_ans_tpu.bvgraph.synth import synth_web_graph as jsynth
+    t, j = tsynth(n, seed=seed), jsynth(n, seed=seed)
+    for a, b in ((t.offsets, j.offsets), (t.succs, j.succs)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)

@@ -77,9 +77,13 @@ def synth_web_graph(num_nodes: int, seed: int = 0, block: int = 8,
     tgt = np.concatenate([tgt_pool, tgt_run, tgt_priv])
 
     # (src, tgt) packed into one sortable i64 key: one radix-ish sort +
-    # unique beats a 2-key lexsort ~4x at the 50M-arc scale.
-    key = src * n + tgt
-    key = np.unique(key)
+    # unique beats a 2-key lexsort ~4x at the 50M-arc scale. The unique is
+    # a mask of adjacent duplicates, not np.unique, which is two orders
+    # of magnitude slower on 67M keys under numpy 2.3.5 (PERF.md, §5).
+    key = np.sort(src * n + tgt)
+    keep = np.ones(len(key), bool)
+    keep[1:] = key[1:] != key[:-1]
+    key = key[keep]
     src = key // n
     tgt = key % n
 

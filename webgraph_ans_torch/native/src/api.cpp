@@ -890,6 +890,47 @@ int32_t wgt_scale_freqs(const uint64_t* freqs, const uint64_t* sorted_idx,
 }
 
 // ---------------------------------------------------------------------------
+// Merged-emit planner: the greedy lane split that ops/graph_decode.py's
+// _emit_bounds bisects on (the JAX package's split() loop, in the same
+// double arithmetic and order, so both give the same bounds; no
+// contraction into fused multiply-adds).
+//
+// Walks the nodes once, summing cost[x] into the open lane; a lane closes
+// before node x when adding it passes `target` at a safe node (safe NULL:
+// every node), or passes 1.5 * target anywhere when force_unsafe; a new
+// lane starts its sum at halo[x]. Writes num_lanes + 1 bounds (the unused
+// lanes empty at n) and returns 1, or returns 0 when the nodes need more
+// than num_lanes lanes at this target.
+// ---------------------------------------------------------------------------
+#pragma GCC push_options
+#pragma GCC optimize("fp-contract=off")
+int32_t wgt_emit_split(const double* cost, const double* halo,
+                       const uint8_t* safe, uint64_t n, uint64_t num_lanes,
+                       int32_t force_unsafe, double target, int64_t* bounds) {
+  const double forced = 1.5 * target;
+  uint64_t nb = 1;
+  uint64_t last = 0;
+  bounds[0] = 0;
+  double acc = halo[0];
+  for (uint64_t x = 0; x < n; ++x) {
+    const double w = cost[x];
+    const double next = acc + w;
+    const bool close = (next > target && (safe == nullptr || safe[x])) ||
+                       (force_unsafe && next > forced);
+    if (close && x > last) {
+      if (nb == num_lanes) return 0;
+      bounds[nb++] = static_cast<int64_t>(x);
+      last = x;
+      acc = halo[x];
+    }
+    acc += w;
+  }
+  for (; nb <= num_lanes; ++nb) bounds[nb] = static_cast<int64_t>(n);
+  return 1;
+}
+#pragma GCC pop_options
+
+// ---------------------------------------------------------------------------
 // Elias-Fano.
 // ---------------------------------------------------------------------------
 int64_t wgt_ef_build_size(const uint64_t* vals, uint64_t n, uint64_t u) {

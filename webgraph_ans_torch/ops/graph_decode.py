@@ -14,6 +14,7 @@ absolute 64-bit word indices, so a lane may span any part of the stream.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import logging
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..bvgraph.random_access import ANSBvGraph
+from ..utils import native
 from . import emit_cuda, emit_post
 from .cuda_build import KernelError
 from .decode_cuda import decode_blocks
@@ -29,7 +31,8 @@ from .decode_torch import (UNROLL, build_decoder_tables_np,
                            seed_rings, tables_from_numpy)
 from .emit_cuda import decode_emit
 from .emit_torch import MAX_WINDOW, emit_init_regs
-from .reconstruct_device import parse_stats, reconstruct_device
+from .reconstruct_device import (LayoutTooLarge, check_flat, parse_stats,
+                                 reconstruct_device)
 
 log = logging.getLogger(__name__)
 
@@ -74,6 +77,38 @@ def _pad_lanes(starts, ends, hi: int, pad_to: int):
         starts = np.concatenate([starts, np.full(pad, hi, starts.dtype)])
         ends = np.concatenate([ends, np.full(pad, hi, ends.dtype)])
     return starts.astype(np.int32), ends.astype(np.int32)
+
+
+def emit_split(cost: np.ndarray, halo: np.ndarray, safe, num_lanes: int,
+               force_unsafe: bool, target: float):
+    """The merged-emit planner's greedy split of n nodes into at most
+    num_lanes lanes at `target`, in the native runtime (wgt_emit_split):
+    walking the nodes in order, a lane closes before node x when its cost
+    sum would pass target at a safe node, or 1.5 * target anywhere when
+    force_unsafe, and the next lane's sum starts at halo[x]. cost [n] and
+    halo [n + 1] are float64, safe [n] bool or None (every node safe).
+    Returns the num_lanes + 1 lane bounds (int64, the unused lanes empty
+    at n), or None when the nodes need more lanes at this target."""
+    cost = np.ascontiguousarray(cost, np.float64)
+    halo = np.ascontiguousarray(halo, np.float64)
+    n = len(cost)
+    if len(halo) != n + 1 or num_lanes < 1:
+        raise ValueError(f"emit_split: {n} costs need {n + 1} halo sums "
+                         f"(got {len(halo)}) and at least one lane")
+    safe_p = None
+    if safe is not None:
+        safe = np.ascontiguousarray(safe, np.uint8)
+        if len(safe) != n:
+            raise ValueError(f"emit_split: {n} costs need {n} safe flags "
+                             f"(got {len(safe)})")
+        safe_p = native.as_ptr(safe, ctypes.c_uint8)
+    bounds = np.empty(num_lanes + 1, np.int64)
+    fits = native.get_lib().wgt_emit_split(
+        native.as_ptr(cost, ctypes.c_double),
+        native.as_ptr(halo, ctypes.c_double), safe_p, n, num_lanes,
+        int(bool(force_unsafe)), float(target),
+        native.as_ptr(bounds, ctypes.c_int64))
+    return bounds if fits else None
 
 
 def _all_done(ok: torch.Tensor, cap: int, what: str):
@@ -375,7 +410,9 @@ class TorchGraphDecoder:
         lanes alone (raising once it passes step_bound), then decodes
         every lane at that cap. emit_aux=True decodes in aux mode; its cap
         covers tokens plus one summary step per node and is kept in the
-        plan apart from the token cap. pad_to and seed go to plan();
+        plan apart from the token cap; its layout must stay under the
+        int32 flat-index limit (reconstruct_device.check_flat raises
+        ValueError naming it). pad_to and seed go to plan();
         launch(lanes, cap, idx=None, emit_aux=False) -> (out, counts, ok)
         runs the kernel in place of _launch_blocks (the sharded decoder
         splits the lanes over its devices)."""
@@ -388,12 +425,22 @@ class TorchGraphDecoder:
             pl["cap_aux"] = round_cap(self.params, pl["cap"] + nodes_max)
         cap = pl[capkey] if auto else round_cap(self.params, cap)
         lanes = [pl[k] for k in ("states", "ptrs", "starts", "ends", "ring")]
+
+        def check(c):
+            # the sort path reads the aux layout with int32 flat indices
+            if emit_aux:
+                check_flat("aux-mode decode [3cap + cap//8, L]",
+                           (3 * c + c // UNROLL) * len(pl["starts_np"]),
+                           pl.setdefault("flat_sizes", {}))
+
+        check(cap)
         out, counts, ok = launch(lanes, cap, emit_aux=emit_aux)
         if not bool(ok.all()):
             cap = _grow_cap(
                 lambda idx, c: launch(lanes, c, idx, emit_aux=emit_aux)[2],
                 ok, cap, self.step_bound("aux" if emit_aux else "token"),
                 "decode_blocks")
+            check(cap)
             out, counts, ok = launch(lanes, cap, emit_aux=emit_aux)
             _all_done(ok, cap, "decode_blocks")
         if auto:
@@ -455,8 +502,10 @@ class TorchGraphDecoder:
     def _emit_bounds(self, num_lanes: int, key=None):
         """Lane bounds for the merged-emit kernel. First call: the
         stream-balanced block bounds. Once per-node degrees are known
-        (cached from a decode), a minmax split over the kernel's step
-        estimate (elements + 2*nodes, or the observed node_work)."""
+        (cached from a decode): on block-encoded artifacts one lane per
+        block-delimited range; otherwise a minmax split, the bisection of
+        emit_split's target over the kernel's step estimate (elements +
+        2*nodes, or the observed node_work)."""
         pl = self._plans.setdefault(key or ("emit", num_lanes), {})
         if "bounds" in pl:
             return pl["bounds"]
@@ -485,6 +534,19 @@ class TorchGraphDecoder:
                 ends[:-1] = starts[1:]
                 ends[-1] = n
             return starts, ends
+        blocks = self.graph.prelude.blocks
+        if blocks is not None:
+            # no lane may cross an encode-block start (the rANS state
+            # resets there). The JAX planner bisects and then snaps every
+            # bound to a block start, so its lanes are the block-delimited
+            # ranges padded with empty ones: plan those ranges, one lane
+            # each, with no bisection. (Every node is an entry point when
+            # phase_step is 1, as the first call's _block_bounds uses; a
+            # split inside the blocks is not planned here.)
+            bounds = np.unique(np.concatenate(
+                [[0], np.asarray(blocks[0], np.int64), [n]]))
+            pl["bounds"] = (bounds[:-1].copy(), bounds[1:].copy())
+            return pl["bounds"]
         safe = pl.get("safe_np")
         offs = np.concatenate([[0], np.cumsum(degs, dtype=np.int64)])
         nw = pl.get("node_work")
@@ -494,36 +556,15 @@ class TorchGraphDecoder:
             work = offs + 2.0 * np.arange(n + 1)
         # halo re-decode cost per boundary (a halo is used only without
         # safe boundaries; see _emit_plan)
-        Hsp = 4 * self.window if (self.phase_step == 1
-                                  and self.graph.prelude.blocks is None
-                                  and self.window > 0
+        Hsp = 4 * self.window if (self.phase_step == 1 and self.window > 0
                                   and safe is None) else 0
         halo_el = offs - offs[np.maximum(np.arange(n + 1) - Hsp, 0)]
-        # Python floats and bools: the greedy split below is a scalar loop
-        cost = np.diff(work).tolist()
-        halo_l = halo_el.astype(np.float64).tolist()
-        safe_l = [True] * n if safe is None else np.asarray(safe).tolist()
-        force_unsafe = self.window <= 12
+        cost = np.diff(work)
+        halo = halo_el.astype(np.float64)
 
         def split(target):
-            blist = [0]
-            acc = halo_l[0]
-            for x in range(n):
-                w = cost[x]
-                # prefer safe boundaries; inside long unsafe stretches
-                # force an unsafe one at 1.5x target (deep-chain windows,
-                # > 12, never force)
-                close = acc + w > target and safe_l[x]
-                close |= (acc + w > 1.5 * target) and force_unsafe
-                if close and x > blist[-1]:
-                    if len(blist) == num_lanes:
-                        return None
-                    blist.append(x)
-                    acc = halo_l[x]
-                acc += w
-            while len(blist) < num_lanes + 1:
-                blist.append(n)
-            return np.array(blist, np.int64)
+            return emit_split(cost, halo, safe, num_lanes,
+                              self.window <= 12, target)
 
         lo = float(work[-1]) / num_lanes
         hi = lo * 8 + float(np.max(degs, initial=0) + halo_el.max()) + 4096
@@ -534,28 +575,13 @@ class TorchGraphDecoder:
             else:
                 hi = mid
         bounds = split(hi)
-        blocks = self.graph.prelude.blocks
-        if blocks is not None or self.phase_step > 1:
-            # a lane must start at an entry point: an encode-block start
-            # (the rANS state resets there) or a sampled phase
-            if blocks is not None:
-                ent = np.unique(np.concatenate(
-                    [[0], np.asarray(blocks[0], np.int64), [n]]))
-            else:
-                ent = self._entries()[0]
+        if self.phase_step > 1:
+            # a lane must start at an entry point: a sampled phase
+            ent = self._entries()[0]
             bounds = ent[np.minimum(np.searchsorted(ent, bounds),
                                     len(ent) - 1)]
             bounds[0], bounds[-1] = 0, n
             bounds = np.maximum.accumulate(bounds)
-            if blocks is not None:
-                # no lane may cross an encode-block start (the rANS state
-                # resets there): split lanes at the starts they contain.
-                # The bounds are then the block table's starts plus 0 and
-                # n whatever the bisection chose; it only places the empty
-                # lanes, which keeps the plan equal to the JAX planner's
-                bst = np.asarray(blocks[0], np.int64)
-                bounds = np.sort(np.concatenate(
-                    [bounds, bst[~np.isin(bst, bounds)]]))
         starts = bounds[:-1].copy()
         ends = bounds[1:].copy()
         pl["bounds"] = (starts, ends)
@@ -674,6 +700,14 @@ class TorchGraphDecoder:
         return decode_emit(self.tables, regs, ptrs, self.window,
                            self.min_interval, cap, T=T, mark_deg=mark_deg)
 
+    @staticmethod
+    def _check_emit_layout(pl: dict, cap: int):
+        """The post-pass addresses the [cap, L] channels with int32 flat
+        indices (starts_flat) and packs a marker's row as row << 6."""
+        sizes = pl.setdefault("flat_sizes", {})
+        check_flat("merged-emit [cap, L]", cap * pl["ptrs"].shape[0], sizes)
+        check_flat("merged-emit marker rows [cap << 6]", cap << 6, sizes)
+
     def decode_emit_raw(self, num_lanes: int = 2048, cap: int | None = None,
                         check: bool = True, launch=None):
         """Merged-emit kernel decode: returns (val, xch, nib, cap), the
@@ -683,7 +717,8 @@ class TorchGraphDecoder:
         decodes every lane at that cap; it then keeps the observed rows
         and the tight cap in the plan; check=False issues no host
         synchronisation. Raises EmitPlanUnsupported for a plan the kernel
-        cannot serve. launch(regs, ptrs, cap, T, idx=None, mark_deg=False)
+        cannot serve, and ValueError (check_flat) for channels past the
+        post-pass's int32 flat indices. launch(regs, ptrs, cap, T, idx=None, mark_deg=False)
         returns decode_emit's outputs in place of _launch_emit (the
         sharded merged emit splits the lanes over its devices)."""
         launch = launch or self._launch_emit
@@ -695,6 +730,7 @@ class TorchGraphDecoder:
         auto = cap is None
         cap = pl["cap"] if auto else -(-cap // UNROLL) * UNROLL
         regs, ptrs, T = pl["regs"], pl["ptrs"], pl["T"]
+        self._check_emit_layout(pl, cap)
         val, xch, nib, rows, ok, _ = launch(regs, ptrs, cap, T)
         if not check:
             return val, xch, nib, cap
@@ -702,6 +738,7 @@ class TorchGraphDecoder:
             cap = _grow_cap(
                 lambda idx, c: launch(regs, ptrs, c, T, idx)[4],
                 ok, cap, self.step_bound("emit"), "decode_emit")
+            self._check_emit_layout(pl, cap)
             val, xch, nib, rows, ok, _ = launch(regs, ptrs, cap, T)
             _all_done(ok, cap, "decode_emit")
         rows_np = rows.cpu().numpy()
@@ -766,7 +803,10 @@ class TorchGraphDecoder:
         high-compression artifacts without safe breaks). When the
         reference-safe boundaries cannot be computed, the rebalanced plan
         keeps the halo re-decode instead. A kernel's build or launch
-        failure and a device error are no such cause: they propagate.
+        failure, a device error and a layout past the int32 flat indices
+        (LayoutTooLarge, a ValueError naming the layout, also from the
+        safe boundaries' aux-mode decode) are no such cause: they
+        propagate.
 
         launch (decode_emit_raw's hook) runs the kernel in place of
         _launch_emit; the plan, its cap loop and its post-pass are the
@@ -819,6 +859,8 @@ class TorchGraphDecoder:
             pl["degs_np"] = degs.cpu().numpy()
             try:
                 pl["safe_np"] = self._safe_boundaries()
+            except LayoutTooLarge:
+                raise
             except (RuntimeError, ValueError) as e:
                 if _device_fault(e):
                     raise

@@ -51,6 +51,28 @@ from .decode_torch import NIB_SUM, P_BLK, P_IS, P_OUT, P_REF, UNROLL
 
 I32 = torch.int32
 DEPTH_BUCKETS = 64      # the meta vector's reference-depth histogram
+# The device layouts are addressed by int32 flat indices and summed by
+# int32 running sums (a [rows, L] array's row * L + lane, emit_post's
+# starts_flat, _cumsum), which wrap at this many elements: the planners
+# refuse a layout that reaches it (64-bit indices are not implemented).
+FLAT_LIMIT = 1 << 31
+
+
+class LayoutTooLarge(ValueError):
+    """A layout past the int32 flat indices (check_flat)."""
+
+
+def check_flat(layout: str, size: int, sizes: dict | None = None) -> None:
+    """Raises LayoutTooLarge (a ValueError) naming `layout` when its
+    `size` elements reach FLAT_LIMIT; otherwise records in `sizes` (when
+    given) the largest size of each layout seen."""
+    if size >= FLAT_LIMIT:
+        raise LayoutTooLarge(
+            f"the {layout} layout holds {size} elements, past the "
+            f"{FLAT_LIMIT} that its int32 flat indices reach: a graph this "
+            "large needs 64-bit indices")
+    if sizes is not None:
+        sizes[layout] = max(sizes.get(layout, 0), int(size))
 
 
 def _quant(x: int) -> int:
@@ -441,7 +463,9 @@ def reconstruct_device(out, num_nodes: int, num_arcs: int, cap: int,
     decode_blocks(emit_aux=True) output [3cap + cap//8, L] (lanes in node
     order). Returns (offsets [n+1] int32, succs [Epad] int32, E) on that
     device, with the successor lists in succs[:E]; raises ValueError on an
-    inconsistent token stream.
+    inconsistent token stream, or on an element space past the int32
+    flat indices (check_flat; its size is recorded in
+    meta_cache["flat_sizes"]).
 
     `meta_cache` (optional, mutated): the meta vector of pass 1 is the one
     value the host needs before it can shape pass 2, so fetching it is the
@@ -451,11 +475,19 @@ def reconstruct_device(out, num_nodes: int, num_arcs: int, cap: int,
     cache (a mismatch drops it and raises ValueError)."""
     n, E = num_nodes, int(num_arcs)
     cached = meta_cache.get("meta") if meta_cache is not None else None
+    sizes = (meta_cache.setdefault("flat_sizes", {})
+             if meta_cache is not None else None)
+
+    def element_space(total_cop: int):
+        Epad, Ccap = _quant(E + 1), _quant(total_cop)
+        check_flat("sort-path element space [2 Epad + Ccap]",
+                   2 * Epad + Ccap + 1, sizes)
+        return Epad, Ccap
 
     if cached is not None and int(cached[3]) < DEPTH_BUCKETS - 1:
         max_depth = int(cached[3])
         offsets, F, meta_d = parse_and_assemble(
-            out, n, cap, _quant(E + 1), _quant(int(cached[2])),
+            out, n, cap, *element_space(int(cached[2])),
             _hist_key(cached, max_depth), depth_iters=max(max_depth, 1))
         if not np.array_equal(meta_d.cpu().numpy(), cached):
             meta_cache.pop("meta", None)
@@ -470,7 +502,7 @@ def reconstruct_device(out, num_nodes: int, num_arcs: int, cap: int,
     if meta_cache is not None:
         meta_cache["meta"] = meta
     total_cop, max_depth = int(meta[2]), int(meta[3])
-    Epad, Ccap = _quant(E + 1), _quant(total_cop)
+    Epad, Ccap = element_space(total_cop)
     if max_depth < DEPTH_BUCKETS - 1:
         F, _, _, _ = assemble(st, total_cop, Epad, Ccap,
                               _hist_key(meta, max_depth))

@@ -27,6 +27,8 @@ u16p = ctypes.POINTER(ctypes.c_uint16)
 u32p = ctypes.POINTER(ctypes.c_uint32)
 u64p = ctypes.POINTER(ctypes.c_uint64)
 i32p = ctypes.POINTER(ctypes.c_int32)
+i64p = ctypes.POINTER(ctypes.c_int64)
+f64p = ctypes.POINTER(ctypes.c_double)
 
 
 def _build() -> None:
@@ -121,6 +123,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "wgt_ans_decode_raw": (
             [u16p, u64, u32, u8p, u64, u16p, u64p, u32p, u32p, u32p, u64p], i32),
         "wgt_scale_freqs": ([u64p, u64p, u64, u64, i64, u64p], i32),
+        "wgt_emit_split": ([f64p, f64p, u8p, u64, u64, i32, c.c_double, i64p], i32),
         "wgt_ef_build_size": ([u64p, u64, u64], i64),
         "wgt_ef_build": ([u64p, u64, u64, u8p], i32),
         "wgt_ef_load": ([u8p, u64], void_p),
