@@ -26,11 +26,19 @@ the paths built on the same kernels: the sort-path reconstruction
 on cnr-2000 and on its high-compression artifact (window 16, unbounded
 reference chains: the deep rounds), the fallbacks of
 decode_to_adjacency_device onto it (a window past 16, a post-pass error),
-and batch random access on cnr-2000 (wave decode, the device CSR server,
+the JAX bench's high-compression mode (window 16 with a reference root
+every 128 nodes) through the merged emit's window-16 kernel at 1024 lanes
+into its steady state (failing if the sort path served), and batch
+random access on cnr-2000 (wave decode, the device CSR server,
 per-query merged-emit lanes, with their reruns at larger caps, and the
-full-decode route) and on a block-encoded, phase-sampled artifact, each
-checked list for list, with the token and merged-emit kernels held
-against their plain versions at the shapes random access gives them.
+full-decode route), the device-resident serving contract
+(successors_batch_device: the JAX bench's on-demand protocol, 262,144
+queries drawn on the card a batch, one steady batch under
+torch.cuda.set_sync_debug_mode("error")) and its serve protocol (2^20
+queries gathered from the device CSR), and random access on a
+block-encoded, phase-sampled artifact, each checked list for list, with
+the token and merged-emit kernels held against their plain versions at
+the shapes random access and the hc mode give them.
 Then scale-out on the one card: the sharded token decode over four
 entries of cuda:0 (serial and 512-block artifacts) and the sharded
 merged emit (a fresh plan and the verified one), each bit for bit the
@@ -45,14 +53,18 @@ generated in the run), its serial artifact and a 512-block artifact
 encoded on the card; the token path, the merged emit into its steady
 state and the sort path at 8192 lanes, the merged emit and the sort path
 on the block artifact with the sequential reader, and the three
-random-access forms, each list for list against the generated graph, with
+random-access forms with the on-demand and serve protocols, each list
+for list against the generated graph, with
 each phase's peak device memory and its int32 layouts' largest sizes as
 shares of 2^31, and each kernel timed at those shapes and held against its
 plain version there: the token, aux-mode and serial merged-emit launches
 on a slice of lanes holding the plan's longest lane at the plan's cap, the
 block plan's merged emit and the encode on every lane at a shorter cap
 (a plain run to their caps of over 100,000 steps would not finish in the
-run), each with the plain version's seconds per step. Each phase prints
+run), each with the plain version's seconds per step. These holds, of
+the hc mode's and the scale phases' shapes, run their plain versions on
+copies of the inputs on the host CPU, in helper processes beside the main
+path, and are settled before the kernels line (plain_holds). Each phase prints
 one JSON line; any failure raises and exits non-zero. The line before the
 last lists the kernels, with their launches summed over every path (the
 launcher's ranks report their own); the last line is the device record.
@@ -62,8 +74,11 @@ Exits 1 without printing a result when CUDA is not available.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import logging
+import multiprocessing
+import multiprocessing.pool
 import os
 import re
 import signal
@@ -104,6 +119,24 @@ SPLIT_PASSES = 41
 # merged emit and the encode, caps past 100,000), every lane at this cap.
 SCALE_PLAIN_LANES = 512
 SCALE_PLAIN_CAP = 4096
+# Those holds' plain versions run on the host CPU (the plain versions are
+# paced by their per-step operations, not by the device) in this many
+# helper processes of this many threads each, beside the main path.
+HOLD_WORKERS = 3
+HOLD_THREADS = 2
+# The JAX bench's high-compression mode (bench.py:293-340): cnr-2000 at
+# window 16, unbounded references, min interval 4, a reference root every
+# 128 nodes, decoded by the merged emit at 1024 lanes.
+HC_SAFE_BREAK = 128
+HC_LANES = 1024
+# The JAX bench's device protocols (tools/bench_device.py): on-demand
+# batches of 262,144 queries drawn on the card, two or more warm batches
+# (until the plan is steady), five timed reps; serving 2^20 queries from a
+# device CSR, out_cap at 1.3 times the mean degree.
+ONDEMAND_BATCH = 262_144
+ONDEMAND_REPS = 5
+SERVE_BATCH = 1 << 20
+SERVE_REPS = 5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and 32-bit integer ALU
 # operations/s (the fp32 pipe's 67 TFLOP/s counts an FMA as two operations;
@@ -150,8 +183,22 @@ SMALL_RING_T = {"w7_r3_i2": 32}
 DIRTY_CODES = (3, 7, 8, 9)
 
 
+RUN_START = time.perf_counter()
+
+
+def _pending(obj):
+    """JSON form of a hold still running in a helper process."""
+    if isinstance(obj, multiprocessing.pool.AsyncResult):
+        return "pending: see the plain_holds line"
+    raise TypeError(f"{type(obj).__name__} is not JSON serialisable")
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase line, with the seconds since the run started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "run_seconds": time.perf_counter() - RUN_START},
+                     default=_pending),
+          flush=True)
 
 
 def cuda_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> dict:
@@ -216,15 +263,94 @@ def longest_slice(steps: torch.Tensor) -> slice:
     return slice(lo, min(lo + SCALE_PLAIN_LANES, L))
 
 
-def hold_plain(kernel_res, plain_fn, lanes: slice, cap: int,
-               steps: int) -> dict:
-    """The kernel's outputs at `lanes` (the last dimension of each)
-    against plain_fn(), the plain version on those lanes, which runs
-    `steps` steps; with its seconds and seconds per step."""
-    plain, sec = timed(plain_fn)
-    return {"lanes": [lanes.start, lanes.stop], "cap": cap, "steps": steps,
-            "plain_seconds": sec, "plain_seconds_per_step": sec / steps,
-            **compare([k[..., lanes] for k in kernel_res], plain)}
+class _HostArray:
+    """A tensor's host copy on its way to a helper process (as a numpy
+    array: pickled through the pipe, not through shared memory)."""
+
+    def __init__(self, t: torch.Tensor):
+        self.a = t.cpu().numpy()
+
+
+def _map_leaves(obj, fn):
+    """obj with fn applied to every leaf, through tuples, named tuples
+    and lists."""
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_map_leaves(x, fn) for x in obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_map_leaves(x, fn) for x in obj)
+    return fn(obj)
+
+
+def _to_host(obj):
+    return _map_leaves(obj, lambda x: _HostArray(x)
+                       if isinstance(x, torch.Tensor) else x)
+
+
+def _from_host(obj):
+    return _map_leaves(obj, lambda x: torch.from_numpy(x.a)
+                       if isinstance(x, _HostArray) else x)
+
+
+def _hold_worker_init():
+    torch.set_num_threads(HOLD_THREADS)
+
+
+def _plain_hold(fn: str, args, kwargs, kernel_res, lanes, cap, steps):
+    """In a helper process: the plain version `fn` ("module.function")
+    on host copies of the inputs, against the kernel's outputs."""
+    mod, name = fn.rsplit(".", 1)
+    plain_fn = getattr(importlib.import_module(mod), name)
+    args, kernel_res = _from_host(args), _from_host(kernel_res)
+    t0 = time.perf_counter()
+    plain = plain_fn(*args, **kwargs)
+    sec = time.perf_counter() - t0
+    return {"lanes": lanes, "cap": cap, "steps": steps,
+            "plain_device": "cpu", "plain_seconds": sec,
+            "plain_seconds_per_step": sec / steps,
+            **compare(kernel_res, plain)}
+
+
+class Holds:
+    """The helper processes that run the plain holds on the host CPU."""
+
+    def __init__(self):
+        self.pool = multiprocessing.get_context("spawn").Pool(
+            HOLD_WORKERS, initializer=_hold_worker_init)
+
+    def close(self):
+        self.pool.terminate()
+        self.pool.join()
+
+
+HOLDS: Holds | None = None
+
+
+def hold_plain(kernel_res, fn: str, args, kwargs, lanes: slice, cap: int,
+               steps: int):
+    """Starts the hold of the kernel's outputs at `lanes` (the last
+    dimension of each) against fn(*args, **kwargs), the plain version on
+    those lanes, which runs `steps` steps: on host copies, in a helper
+    process. Returns its pending result, settled by settle_holds (with
+    the plain seconds and seconds per step)."""
+    return HOLDS.pool.apply_async(_plain_hold, (
+        fn, _to_host(args), kwargs,
+        _to_host([k[..., lanes] for k in kernel_res]),
+        [lanes.start, lanes.stop], cap, steps))
+
+
+def settle_holds(kernels: dict) -> None:
+    """Waits for every pending hold of kernels (name -> kernel record),
+    puts its result in place, prints them on one line and fails the run
+    if a kernel differs from its plain version."""
+    t0 = time.perf_counter()
+    for k in kernels.values():
+        k["plain"] = k["plain"].get()
+    emit("plain_holds", wait_seconds=time.perf_counter() - t0,
+         holds={name: k["plain"] for name, k in kernels.items()})
+    bad = [name for name, k in kernels.items()
+           if not k["plain"]["bit_equal"]]
+    if bad:
+        raise SystemExit(f"kernels differ from their plain versions: {bad}")
 
 
 def _bound(read, written, ops) -> dict:
@@ -685,8 +811,9 @@ def emit_rounds_vs_plain(era, q, rounds: list, max_plain_cap: int) -> list:
     return out
 
 
-def random_access_phases(g, adj, edec, runs: PathRuns) -> dict:
-    """Phases 18-19: batch random access on cnr-2000 and on a
+def random_access_phases(g, adj, edec, runs: PathRuns, smi: str) -> dict:
+    """Phases 18-19b: batch random access on cnr-2000, the device-resident
+    serving contract and the serve protocol there, and random access on a
     block-encoded, phase-sampled artifact. Returns the comparisons of
     each kernel with its plain version at the shapes these paths give
     it."""
@@ -741,7 +868,11 @@ def random_access_phases(g, adj, edec, runs: PathRuns) -> dict:
            "batch_seconds": serve_s,
            "ns_per_arc": serve_s * 1e9 / len(got.succs),
            "gather_device_ms": t_gather, "exact": csr_exact_1m}
-    del srv, got, qd
+    del got, qd
+    # ---- 19b. the device-resident serving contract
+    # (successors_batch_device) and the serve protocol on cnr-2000 ----
+    ondemand_phase(Scale(runs, smi, None, graph="cnr-2000"), g, adj, srv)
+    del srv
 
     era = TorchEmitRandomAccess(edec)
     emit_runs = {}
@@ -1087,10 +1218,12 @@ def scalar_split(cost, halo, safe, num_lanes, force_unsafe, target):
 
 class Scale:
     """The scale phases' shared state: the fixture, its two artifacts,
-    the card line, and each phase's peak device memory."""
+    the card line, and each phase's peak device memory (also used by the
+    cnr-2000 phases that report their peaks: graph names the graph)."""
 
-    def __init__(self, runs: PathRuns, smi: str, tmp: str):
-        self.runs, self.smi, self.tmp = runs, smi, tmp
+    def __init__(self, runs: PathRuns, smi: str, tmp: str,
+                 graph: str = "synth-4M"):
+        self.runs, self.smi, self.tmp, self.graph = runs, smi, tmp, graph
         self.kernels = {}
 
     def start(self):
@@ -1114,7 +1247,7 @@ class Scale:
         if flat is not None:
             extra["flat_share_of_2_31"] = {k: v / 2 ** 31
                                            for k, v in flat.items()}
-        emit(phase, graph="synth-4M", **fields, **extra)
+        emit(phase, graph=self.graph, **fields, **extra)
 
 
 def _flat(*dicts) -> dict:
@@ -1185,10 +1318,10 @@ def scale_fixture(sc: Scale):
         "lanes": L, "cap": plan.cap, "ms": t_enc,
         **encode_bound(plan, kres[3])}
     short = (*encode_args(plan)[:-1], SCALE_PLAIN_CAP)
-    held = hold_plain(encode_cuda.encode_blocks(*short),
-                      lambda: encode_torch.encode_blocks_plain(*short),
-                      slice(0, L), SCALE_PLAIN_CAP, SCALE_PLAIN_CAP)
-    sc.kernels["encode_blocks"]["plain"] = held
+    sc.kernels["encode_blocks"]["plain"] = hold_plain(
+        encode_cuda.encode_blocks(*short),
+        "webgraph_ans_torch.ops.encode_torch.encode_blocks_plain", short,
+        {}, slice(0, L), SCALE_PLAIN_CAP, SCALE_PLAIN_CAP)
     del plans, plan, kres, short
     gs = ANSBvGraph(res_s.prelude, res_s.states, res_s.pointers)
     gb = ANSBvGraph(res_b.prelude, res_b.states, res_b.pointers)
@@ -1198,9 +1331,6 @@ def scale_fixture(sc: Scale):
             passes_1_2_stages=seconds, serial=serial,
             blocks={"blocks": SCALE_BLOCKS, **blocks, "launches": counts,
                     "encode_kernel": sc.kernels["encode_blocks"]})
-    if not held["bit_equal"]:
-        raise SystemExit("scale fixture: encode_blocks differs from its "
-                         "plain version")
     return adj, gs, gb, res_b
 
 
@@ -1256,30 +1386,29 @@ def scale_token_path(sc: Scale, adj, gs) -> int:
             token_layout_share_of_2_31=(cap + cap // 8) * L / 2 ** 31)
     if not (cold_exact and warm_exact):
         raise SystemExit("scale token path: lists differ from the input")
-    if not sc.kernels["decode_blocks"]["plain"]["bit_equal"]:
-        raise SystemExit("scale token path: decode_blocks differs from its "
-                         "plain version")
     return tokens
 
 
-def hold_decode(dec, pl, cap, kres, emit_aux: bool = False) -> dict:
+def hold_decode(dec, pl, cap, kres, emit_aux: bool = False):
     """decode_blocks' outputs kres on the plan pl against the plain
-    version on the lanes around the one of most steps, at the same cap."""
-    from webgraph_ans_torch.ops.decode_torch import decode_blocks_plain
+    version on the lanes around the one of most steps, at the same cap
+    (pending, as hold_plain)."""
     sl = longest_slice(kres[1])
     args = (dec.tables, *(pl[k][sl] for k in ("states", "ptrs", "starts",
                                                "ends", "ring")),
             dec.window, dec.min_interval, cap)
-    return hold_plain(kres, lambda: decode_blocks_plain(
-        *args, emit_aux=emit_aux), sl, cap, int(kres[1][sl].max()))
+    return hold_plain(
+        kres, "webgraph_ans_torch.ops.decode_torch.decode_blocks_plain",
+        args, {"emit_aux": emit_aux}, sl, cap, int(kres[1][sl].max()))
 
 
-def emit_to_steady(sc: Scale, dec, adj, name: str, host: dict):
-    """decode_to_adjacency_device at SCALE_LANES until the plan is
-    verified, then five steady calls, each checked list for list; the
-    first call's last kernel launch (its plan, before the rebalance)
-    timed alone. Returns (the per-call records, the steady records, the
-    first call's kernel, the plan)."""
+def emit_to_steady(sc: Scale, dec, adj, name: str, host: dict,
+                   lanes: int = SCALE_LANES):
+    """decode_to_adjacency_device at `lanes` until the plan is verified,
+    then five steady calls, each checked list for list; the first call's
+    last kernel launch (its plan, before the rebalance) timed alone.
+    Returns (the per-call records, the steady records, the first call's
+    kernel, the plan)."""
     from webgraph_ans_torch.ops import emit_cuda
 
     arcs = adj.num_arcs
@@ -1289,7 +1418,7 @@ def emit_to_steady(sc: Scale, dec, adj, name: str, host: dict):
     def keep_first(*a, **kw):
         res = raw(*a, **kw)
         if not first:
-            p = dec._plans[("emit", SCALE_LANES)]
+            p = dec._plans[("emit", lanes)]
             first.update(
                 args=emit_args(dec, p, res[3]), lanes=len(p["starts_np"]),
                 empty_lanes=int(np.sum(p["starts_np"] >= p["ends_np"])),
@@ -1301,8 +1430,8 @@ def emit_to_steady(sc: Scale, dec, adj, name: str, host: dict):
         for k in host:
             host[k] = [] if k == "caps" else 0.0
         (res3, sec), counts = sc.runs(f"{name} call {i}", lambda: timed(
-            lambda: dec.decode_to_adjacency_device(SCALE_LANES)), [])
-        pl = dec._plans[("emit", SCALE_LANES)]
+            lambda: dec.decode_to_adjacency_device(lanes)), [])
+        pl = dec._plans[("emit", lanes)]
         mc = pl.get("post_meta", {})
         calls.append({
             "seconds": sec, "caps": list(host["caps"]),
@@ -1324,12 +1453,12 @@ def emit_to_steady(sc: Scale, dec, adj, name: str, host: dict):
         if pl.get("verified") and "fx_offs" in mc:
             break
     results, counts = sc.runs(f"{name} steady", lambda: [timed(
-        lambda: dec.decode_to_adjacency_device(SCALE_LANES))
+        lambda: dec.decode_to_adjacency_device(lanes))
         for _ in range(5)], ["decode_emit"])
     steady_exact = all(adjacency_exact(r, adj) for r, _ in results)
     steady_s = statistics.median(t for _, t in results)
     del results
-    t_dev = cuda_ms(lambda: dec.decode_to_adjacency_device(SCALE_LANES))
+    t_dev = cuda_ms(lambda: dec.decode_to_adjacency_device(lanes))
     steady = {"seconds": steady_s, "exact": steady_exact,
               "device_ms": t_dev,
               "device_ns_per_arc": t_dev["median"] * 1e6 / arcs,
@@ -1344,11 +1473,10 @@ def emit_to_steady(sc: Scale, dec, adj, name: str, host: dict):
 
 def emit_kernel_scale(dec, pl, tokens: int, short: bool = False) -> dict:
     """decode_emit timed on a verified plan (mark_deg), with its bound,
-    and held against its plain version: on the lanes around the one of
-    most rows at the plan's cap, or (short) on every lane at
-    SCALE_PLAIN_CAP."""
+    and held against its plain version (pending, as hold_plain): on the
+    lanes around the one of most rows at the plan's cap, or (short) on
+    every lane at SCALE_PLAIN_CAP."""
     from webgraph_ans_torch.ops.emit_cuda import decode_emit
-    from webgraph_ans_torch.ops.emit_torch import decode_emit_plain
     T = pl["T"]
     eargs = emit_args(dec, pl, pl["cap"])
     ek = decode_emit(*eargs, T=T, mark_deg=True)
@@ -1364,8 +1492,9 @@ def emit_kernel_scale(dec, pl, tokens: int, short: bool = False) -> dict:
         sargs = (dec.tables, pl["regs"][:, sl].contiguous(), pl["ptrs"][sl],
                  dec.window, dec.min_interval, cap)
         steps = int(ek[3][sl].max())
-    out["plain"] = hold_plain(ek, lambda: decode_emit_plain(
-        *sargs, T=T, mark_deg=True), sl, cap, steps)
+    out["plain"] = hold_plain(
+        ek, "webgraph_ans_torch.ops.emit_torch.decode_emit_plain", sargs,
+        {"T": T, "mark_deg": True}, sl, cap, steps)
     return out
 
 
@@ -1435,9 +1564,6 @@ def scale_emit(sc: Scale, adj, gs, tokens: int):
     if not split["bounds_equal"]:
         raise SystemExit("scale merged emit: the native split differs from "
                          "the scalar loop")
-    if not sc.kernels["decode_emit"]["plain"]["bit_equal"]:
-        raise SystemExit("scale merged emit: decode_emit differs from its "
-                         "plain version")
     return dec
 
 
@@ -1486,10 +1612,6 @@ def scale_sort_path(sc: Scale, adj, gs):
     sc.emit("scale_sort_path", dec=dec, flat=_flat(pl, pl.get("recon_meta")),
             lanes=len(pl["starts_np"]), cap=acap, **res,
             kernel=sc.kernels["decode_blocks_aux"])
-    if not sc.kernels["decode_blocks_aux"]["plain"]["bit_equal"]:
-        raise SystemExit("scale sort path: decode_blocks (aux) differs from "
-                         "its plain version")
-
 
 def scale_blocks(sc: Scale, adj, gb, res_b, tokens: int):
     """Phase 30: the 512-block artifact: the merged emit into its steady
@@ -1530,18 +1652,17 @@ def scale_blocks(sc: Scale, adj, gb, res_b, tokens: int):
             sort_path=sort,
             sequential={"seconds": seq_s, "exact": seq_exact})
     del dec
-    if not (one_lane_a_block and seq_exact
-            and sc.kernels["decode_emit_blocks"]["plain"]["bit_equal"]):
+    if not (one_lane_a_block and seq_exact):
         raise SystemExit("scale blocks: the emit plan is not one lane a "
-                         "block, the sequential reader's lists differ, or "
-                         "decode_emit differs from its plain version")
+                         "block, or the sequential reader's lists differ")
 
 
-def scale_random_access(sc: Scale, adj, gs, edec):
+def scale_random_access(sc: Scale, adj, gs, edec, tokens: int):
     """Phase 31: random access with seeded uniform queries, as phase 18:
     the wave decode (10,000), the CSR server (build, then 1,000,000) and
     per-query merged-emit lanes (4,096, with their rounds), each batch
-    list for list against the input graph."""
+    list for list against the input graph; then phase 31b (tokens: the
+    serial artifact's token count, for decode_emit's bound)."""
     from webgraph_ans_torch import (TorchCsrServer, TorchEmitRandomAccess,
                                     TorchGraphDecoder, TorchRandomAccess)
 
@@ -1570,7 +1691,7 @@ def scale_random_access(sc: Scale, adj, gs, edec):
            "batch_seconds": [timed(lambda: srv.serve(q))[1]
                              for _ in range(3)],
            "exact": adjacency_equal(got, lists_of(adj, q))}
-    del srv, got
+    del got
     era = TorchEmitRandomAccess(edec)
     emit_b = []
     for _ in range(2):
@@ -1590,6 +1711,224 @@ def scale_random_access(sc: Scale, adj, gs, edec):
             and all(b["exact"] for b in emit_b)):
         raise SystemExit("scale random access: a batch differs from the "
                          "input graph")
+    del era
+    # ---- 31b. the device-resident serving contract and the serve
+    # protocol at synth-4M ----
+    ondemand_phase(sc, gs, adj, srv, tokens)
+
+
+def hc_safe_break_phase(adj, runs: PathRuns, smi: str, tmp: str) -> dict:
+    """Phase 17b: cnr-2000 stored in the JAX bench's high-compression mode
+    with safe breaks (store(..., 16, 2e9, 4, safe_break_interval=128),
+    host passes), decoded by the merged emit at HC_LANES lanes into the
+    verified steady state (the window-16 instance of decode_emit), every
+    call list for list; fails if the sort path served (emit_broken) or
+    decode_emit never launched. Prints the 64-pass safe-boundary loop's
+    passes and the nodes it leaves updating beside the converged safe set,
+    and returns decode_emit's time, bound and plain hold on the verified
+    plan."""
+    from webgraph_ans_torch import ANSBvGraph, TorchGraphDecoder, store
+    from webgraph_ans_torch.ops import emit_cuda, graph_decode
+
+    base = os.path.join(tmp, "cnr_hc_safe")
+    res, store_s = timed(lambda: store(CNR, base, 16, 2_000_000_000, 4,
+                                       safe_break_interval=HC_SAFE_BREAK))
+    del res
+    g = ANSBvGraph.load(base)
+    n, arcs = adj.num_nodes, adj.num_arcs
+    sc = Scale(runs, smi, tmp, graph="cnr-2000 hc safe breaks")
+    sc.start()
+    dec = TorchGraphDecoder(g)
+    host = {}
+    timing_hooks(dec, host)
+    calls, steady, first, pl = emit_to_steady(
+        sc, dec, adj, "hc safe-break merged emit", host, lanes=HC_LANES)
+    parent, has_ref, counts = dec._reference_parents()
+    _, passes, still = graph_decode.safe_nodes(parent, has_ref)
+    exact, deepest, _ = graph_decode.safe_nodes(parent, has_ref, n)
+    used = pl["safe_np"]
+    safe = {"passes": passes, "still_updating": still,
+            "passes_to_converge": deepest,
+            "safe_nodes": int(used.sum()),
+            "exact_safe_nodes": int(exact.sum()),
+            "wrongly_safe": int((used & ~exact).sum()),
+            "missed_safe": int((exact & ~used).sum())}
+    del parent, has_ref
+    tokens = int(counts.sum())
+    kernel = emit_kernel_scale(dec, pl, tokens)
+    kernel.update(emit_cuda.launch_geometry(dec.window, pl["T"]))
+    kernel["first_call"] = first
+    sc.emit("hc_safe_break_emit", dec=dec,
+            flat=_flat(pl, dec._plans.get(2048)), window=16,
+            max_ref_count=2_000_000_000, min_interval_length=4,
+            safe_break_interval=HC_SAFE_BREAK, source="bench.py:293-340",
+            store_seconds=store_s, stream_words=len(g.prelude.stream),
+            bits_per_link=os.path.getsize(base + ".ans") * 8 / arcs,
+            lanes=HC_LANES, cold_seconds=[c["seconds"] for c in calls],
+            calls=calls, steady=steady,
+            steady_ns_per_arc=steady["device_ms"]["median"] * 1e6 / arcs,
+            T=pl["T"], cap=pl["cap"],
+            empty_lanes=int(np.sum(pl["starts_np"] >= pl["ends_np"])),
+            dirty_nodes=int(np.sum(pl["post_meta"]["pdirty_np"])),
+            emit_broken=pl.get("emit_broken"), safe_boundaries=safe,
+            kernel=kernel)
+    if safe["wrongly_safe"]:
+        raise SystemExit("hc safe-break: the 64-pass loop marked a node safe "
+                         "that a reference chain crosses")
+    return kernel
+
+
+def ondemand_device(dec, adj, runs: PathRuns, name: str) -> dict:
+    """The JAX bench's on-demand protocol (tools/bench_device.py:169-249)
+    through TorchEmitRandomAccess.successors_batch_device on a fresh
+    decoder: ONDEMAND_BATCH int32 queries a batch drawn on the card from
+    a seeded generator; warm batches until the 2048-lane plan is verified
+    and its CUDA graph recorded; then ONDEMAND_REPS reps, each drained by
+    int(total) on the host clock, the first of them checked query for
+    query against the input graph on the host; one more steady batch
+    under torch.cuda.set_sync_debug_mode("error"), which raises on a host
+    synchronisation."""
+    from webgraph_ans_torch import TorchEmitRandomAccess
+
+    n = adj.num_nodes
+    era = TorchEmitRandomAccess(dec)
+    lanes = era.FULL_DECODE_LANES
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(2026)
+
+    def make_q():
+        return torch.randint(0, n, (ONDEMAND_BATCH,), generator=gen,
+                             device=DEVICE, dtype=torch.int32)
+
+    def batch():
+        t0 = time.perf_counter()
+        q = make_q()
+        outv, offs, total = era.successors_batch_device(q)
+        arcs = int(total)        # drains the whole pipeline
+        return q, outv, offs, arcs, time.perf_counter() - t0
+
+    def steady():
+        pl = dec._plans.get(("emit", lanes), {})
+        ready = pl.get("verified") and "fx_offs" in pl.get("post_meta", {})
+        # on the card the first steady call records the CUDA graph
+        return ready and ("graph" in pl or dec.device.type != "cuda")
+
+    def warm_then_reps():
+        warm = []
+        while len(warm) < 2 or not steady():
+            if len(warm) == 6:
+                raise SystemExit(f"{name}: the plan never reached its "
+                                 "steady state")
+            warm.append(batch()[4])
+        reps = [batch() for _ in range(ONDEMAND_REPS)]
+        return warm, reps
+
+    (warm, reps), counts = runs(f"{name} on-demand", warm_then_reps,
+                                ["decode_emit"])
+    q, outv, offs, total, _ = reps[0]          # the checked batch
+    want = lists_of(adj, q.cpu().numpy())
+    exact = (total <= outv.shape[0]
+             and np.array_equal(offs.cpu().numpy().astype(np.int64),
+                                want.offsets.astype(np.int64))
+             and np.array_equal(outv[:total].cpu().numpy().astype(np.uint32),
+                                want.succs))
+    del q, outv, offs, want
+    q = make_q()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = era.successors_batch_device(q)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync_free_total = int(got[2])
+    del got
+    secs = [r[4] for r in reps]
+    arcs = [r[3] for r in reps]
+    del reps
+    pl = dec._plans[("emit", lanes)]
+    sec = statistics.median(secs)
+    return {"queries": ONDEMAND_BATCH, "lanes_requested": lanes,
+            "lanes": len(pl["starts_np"]),
+            "T": pl["T"], "cap": pl["cap"], "warm_seconds": warm,
+            "rep_seconds": secs, "ms_per_batch": sec * 1e3,
+            "arcs_per_rep": arcs,
+            "ns_per_arc": sec * 1e9 / max(statistics.mean(arcs), 1),
+            "out_cap": era._full_out_cap(ONDEMAND_BATCH),
+            "checked_queries": ONDEMAND_BATCH, "checked_total": total,
+            "exact": exact, "sync_debug_rep_total": sync_free_total,
+            "launches": counts, "emit_broken": pl.get("emit_broken")}
+
+
+def serve_device(srv, adj) -> dict:
+    """The JAX bench's serve protocol (tools/bench_device.py:250-282) on a
+    built TorchCsrServer: SERVE_BATCH queries drawn on the card a rep,
+    one gather_rows at out_cap = 1.3 times the mean degree, drained by
+    int(total); the first batch checked query for query against the input
+    graph."""
+    from webgraph_ans_torch.ops.random_torch import gather_rows
+    from webgraph_ans_torch.ops.reconstruct_device import _quant
+
+    n = adj.num_nodes
+    out_cap = _quant(int(SERVE_BATCH * (adj.num_arcs / n) * 1.3))
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(2027)
+
+    def rep():
+        t0 = time.perf_counter()
+        q = torch.randint(0, n, (SERVE_BATCH,), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+        out, out_off, total = gather_rows(srv.offsets, srv.succs, q,
+                                          out_cap)
+        tot = int(total)
+        return q, out, out_off, tot, time.perf_counter() - t0
+
+    q, out, out_off, tot, _ = rep()
+    want = lists_of(adj, q.cpu().numpy())
+    exact = (tot <= out_cap
+             and np.array_equal(out_off.cpu().numpy().astype(np.int64),
+                                want.offsets.astype(np.int64))
+             and np.array_equal(out[:tot].cpu().numpy().astype(np.uint32),
+                                want.succs))
+    del q, out, out_off, want
+    rep()
+    reps = [rep()[3:] for _ in range(SERVE_REPS)]
+    secs = [r[1] for r in reps]
+    tots = [r[0] for r in reps]
+    sec = statistics.median(secs)
+    return {"queries": SERVE_BATCH, "out_cap": out_cap, "rep_seconds": secs,
+            "ms_per_batch": sec * 1e3, "arcs_per_rep": tots,
+            "ns_per_arc": sec * 1e9 / statistics.mean(tots),
+            "fits_out_cap": max(tots) <= out_cap, "exact": exact}
+
+
+def ondemand_phase(sc: Scale, g, adj, srv, tokens: int | None = None
+                   ) -> None:
+    """Phases 19b and 31b: the device-resident serving contract and the
+    serve protocol on one graph, with the phase's peak device memory.
+    Given the graph's token count (31b, where no earlier phase ran a plan
+    of the contract's lane count), decode_emit is timed on the verified
+    plan beside its bound and held against its plain version on every
+    lane at SCALE_PLAIN_CAP (sc.kernels["decode_emit_ondemand"])."""
+    from webgraph_ans_torch import TorchGraphDecoder
+
+    sc.start()
+    dec = TorchGraphDecoder(g)
+    od = ondemand_device(dec, adj, sc.runs, f"{sc.graph} ondemand")
+    kernel = None
+    if tokens is not None:
+        pl = dec._plans[("emit", od["lanes_requested"])]
+        kernel = emit_kernel_scale(dec, pl, tokens, short=True)
+        sc.kernels["decode_emit_ondemand"] = kernel
+        del pl
+    del dec
+    serve = serve_device(srv, adj)
+    sc.emit("ondemand_device", dec=srv.dec, ondemand=od, serve=serve,
+            kernel=kernel)
+    if not (od["exact"] and serve["exact"] and serve["fits_out_cap"]
+            and not od["emit_broken"]):
+        raise SystemExit(f"{sc.graph} ondemand: a batch differs from the "
+                         "input graph, the serve batch overflowed, or the "
+                         "merged emit fell back")
 
 
 def scale_phases(runs: PathRuns, smi: str, tmp: str) -> dict:
@@ -1601,11 +1940,12 @@ def scale_phases(runs: PathRuns, smi: str, tmp: str) -> dict:
     edec = scale_emit(sc, adj, gs, tokens)
     scale_sort_path(sc, adj, gs)
     scale_blocks(sc, adj, gb, res_b, tokens)
-    scale_random_access(sc, adj, gs, edec)
+    scale_random_access(sc, adj, gs, edec, tokens)
     return sc.kernels
 
 
 def main() -> int:
+    global HOLDS
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1643,6 +1983,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, kernels=[
         {"kernel": name, "seconds": info["seconds"], "ptxas": reports[name]}
         for name, info in zip(reports, built)])
+    HOLDS = Holds()
     # checked after the last phase, so that one run reports everything
     spills = {f"{name}/{inst}": rep for name, insts in reports.items()
               for inst, rep in insts.items()
@@ -2108,7 +2449,10 @@ def main() -> int:
         runs = PathRuns()
         hc_base = os.path.join(tmp, "cnr_hc")
         sort_path_phases(g, adj, edec, runs, hc_base)
-        ra_cmp = random_access_phases(g, adj, edec, runs)
+        # ---- 17b. the JAX bench's hc mode with safe breaks: the merged
+        # emit's window-16 instance at 1024 lanes ----
+        hc_kernel = hc_safe_break_phase(adj, runs, smi, tmp)
+        ra_cmp = random_access_phases(g, adj, edec, runs, smi)
 
         # ---- 20-25. scale-out: shards on the card, ranks over gloo and
         # NCCL ----
@@ -2118,6 +2462,7 @@ def main() -> int:
         # ---- 26-31. every single-device path on the JAX bench's
         # 4M-node synthetic fixture ----
         scale = scale_phases(runs, smi, tmp)
+        settle_holds({**scale, "decode_emit_hc": hc_kernel})
 
     if spills:
         raise SystemExit(f"kernel instances spill registers: {spills}")
@@ -2167,18 +2512,26 @@ def main() -> int:
                       and ra_cmp["decode_emit"]["bit_equal"]
                       and so_cmp["decode_emit"]["bit_equal"]
                       and held["decode_emit"]["bit_equal"]
-                      and held["decode_emit_blocks"]["bit_equal"]),
+                      and held["decode_emit_blocks"]["bit_equal"]
+                      and held["decode_emit_ondemand"]["bit_equal"]
+                      and hc_kernel["plain"]["bit_equal"]),
         "max_abs_err": max(cmp_emit["max_abs_err"],
                            ra_cmp["decode_emit"]["max_abs_err"],
                            so_cmp["decode_emit"]["max_abs_err"],
                            held["decode_emit"]["max_abs_err"],
-                           held["decode_emit_blocks"]["max_abs_err"]),
+                           held["decode_emit_blocks"]["max_abs_err"],
+                           held["decode_emit_ondemand"]["max_abs_err"],
+                           hc_kernel["plain"]["max_abs_err"]),
         "ms": t_emit["median"],
         "plain_ms": eplain_s * 1e3, "bound_ms": ebound["bound_ms"],
         "bound_by": ebound["bound_by"], "library_ms": None,
         "lanes": len(epl["starts_np"]), **geometry,
         "scale": {"serial": scale["decode_emit"],
-                  "blocks": scale["decode_emit_blocks"]},
+                  "blocks": scale["decode_emit_blocks"],
+                  "ondemand_2048": scale["decode_emit_ondemand"]},
+        "hc_safe_break_w16": {k: hc_kernel[k] for k in (
+            "lanes", "cap", "T", "ms", "bound_ms", "bound_by",
+            "lanes_per_block", "smem_bytes")},
     }, {
         "name": "encode_blocks", "route": "cuda",
         "source": "webgraph_ans_torch/csrc/encode_blocks.cu",
@@ -2202,4 +2555,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        if HOLDS is not None:
+            HOLDS.close()
+    sys.exit(rc)

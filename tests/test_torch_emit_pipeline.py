@@ -504,3 +504,23 @@ def test_default_device_needs_cuda(artifacts, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TorchGraphDecoder(TorchGraph.load(base)).decode_to_adjacency_device()
+
+
+def test_safe_nodes_reports_unconverged_passes():
+    """safe_nodes on one reference chain 99 deep (node x copies x - 1):
+    64 passes leave the 35 nodes past depth 64 still updating, and the
+    safe set (node 0 alone) equals the converged one; with a root every
+    10 nodes the loop converges after 9 passes, and every root is safe."""
+    n = 100
+    parent = np.maximum(np.arange(n) - 1, 0)
+    has_ref = np.arange(n) > 0
+    safe, passes, still = graph_decode.safe_nodes(parent, has_ref)
+    assert (passes, still) == (graph_decode.SAFE_PASSES, n - 1 - 64)
+    exact, passes_n, still_n = graph_decode.safe_nodes(parent, has_ref, n)
+    assert (passes_n, still_n) == (n - 1, 0)
+    np.testing.assert_array_equal(safe, exact)
+    assert safe.tolist() == [True] + [False] * (n - 1)
+    roots = np.arange(n) % 10 > 0
+    safe, passes, still = graph_decode.safe_nodes(parent, roots)
+    assert (passes, still) == (9, 0)
+    np.testing.assert_array_equal(safe, np.arange(n) % 10 == 0)

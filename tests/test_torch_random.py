@@ -20,7 +20,7 @@ from webgraph_ans_tpu.bvgraph.synth import synth_web_graph
 from webgraph_ans_tpu.ops import random_tpu
 from webgraph_ans_tpu.ops.graph_decode import TpuGraphDecoder
 from webgraph_ans_torch.bvgraph.random_access import ANSBvGraph as TorchGraph
-from webgraph_ans_torch.ops import random_torch
+from webgraph_ans_torch.ops import graph_decode, random_torch
 from webgraph_ans_torch.ops.graph_decode import TorchGraphDecoder
 from webgraph_ans_torch.ops.random_torch import (TorchCsrServer,
                                                  TorchEmitRandomAccess,
@@ -284,3 +284,204 @@ def test_wave_cap_loop_is_bounded(graphs, monkeypatch):
     bound = dec.step_bound("token")
     assert len(caps) <= int(np.ceil(np.log2(bound / caps[0]))) + 1
     assert caps[-1] >= bound
+
+
+# duplicates (3 three times, 0 and the last node twice) and both ends
+DEVICE_QUERIES = [3, 3, 0, 399, 17, 250, 3, 0, 399, 128]
+SMALL_OUT_CAP = 16
+
+
+JAX_FULL_DECODE_LANES = 16
+
+
+@pytest.fixture(scope="module")
+def jax_device_batches(emit_graph):
+    """The JAX package's successors_batch_device on DEVICE_QUERIES, with
+    the default out_cap and with SMALL_OUT_CAP, Pallas in interpret mode.
+    Its decoder's full merged-emit decode runs once, at 16 lanes in place
+    of 2048, and both calls gather from it: the lists do not depend on
+    the lane count, and in interpret mode each lane count and cap traces
+    the kernel anew (2048 lanes: ~90 s for the first decode alone). The
+    safe boundaries, which only plan the decoder's later calls, are
+    skipped (their aux-mode decode runs at 2048 lanes)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("WGT_PALLAS", "interpret")
+        dec = TpuGraphDecoder(JaxGraph(*emit_graph[1]))
+        decode, made = dec.decode_to_adjacency_device, []
+
+        def decode_once(num_lanes):
+            assert num_lanes == 2048
+            if not made:
+                made.append(decode(JAX_FULL_DECODE_LANES))
+            return made[0]
+
+        def skip():
+            raise RuntimeError("safe boundaries skipped")
+
+        mp.setattr(dec, "decode_to_adjacency_device", decode_once)
+        mp.setattr(dec, "_safe_boundaries", skip)
+        jra = random_tpu.TpuEmitRandomAccess(dec)
+        q = np.asarray(DEVICE_QUERIES)
+        return {cap: tuple(np.asarray(x) for x in
+                           jra.successors_batch_device(q, cap))
+                for cap in (None, SMALL_OUT_CAP)}
+
+
+@pytest.fixture(scope="module")
+def torch_emit_ra(emit_graph):
+    """The port's emit random access on the CPU, its full decode at the
+    JAX side's 16 lanes: the plain merged emit's CPU time grows with the
+    lanes, and 2048 of them on this 400-node graph are nearly all empty
+    (test_emit_random_access_matches_jax runs the default 2048)."""
+    ra = TorchEmitRandomAccess(TorchGraphDecoder(TorchGraph(*emit_graph[1]),
+                                                 device="cpu"))
+    ra.FULL_DECODE_LANES = JAX_FULL_DECODE_LANES
+    return ra
+
+
+def _assert_device_batch(got, want, lists=None):
+    outv, offs, total = got
+    joutv, joffs, jtotal = want
+    assert outv.dtype == offs.dtype == torch.int32
+    assert int(total) == int(jtotal)
+    np.testing.assert_array_equal(offs.numpy(), joffs)
+    if lists is None:                 # an out_cap below total: all of outv
+        np.testing.assert_array_equal(outv.numpy(), joutv)
+        return
+    np.testing.assert_array_equal(outv[:int(total)].numpy(),
+                                  joutv[:int(jtotal)])
+    assert [outv[offs[i]:offs[i + 1]].tolist()
+            for i in range(len(DEVICE_QUERIES))] == [lists[q]
+                                                     for q in DEVICE_QUERIES]
+
+
+@pytest.mark.parametrize("form", ["array", "tensor"])
+def test_successors_batch_device_matches_jax(emit_graph, jax_device_batches,
+                                             torch_emit_ra, form):
+    """Duplicated queries as a host array and as an int64 tensor: offs,
+    total and outv[:total] equal the JAX package's (tolerance 0), and
+    each query's slice is its list in the graph."""
+    q = (np.asarray(DEVICE_QUERIES) if form == "array"
+         else torch.tensor(DEVICE_QUERIES))
+    _assert_device_batch(torch_emit_ra.successors_batch_device(q),
+                         jax_device_batches[None], emit_graph[0].to_lists())
+
+
+def test_successors_batch_device_out_cap_below_total(jax_device_batches,
+                                                     torch_emit_ra):
+    """With out_cap below the batch's total, offs and total stay exact and
+    outv is cut off at out_cap, as in the JAX package; the method does not
+    gather again."""
+    got = torch_emit_ra.successors_batch_device(
+        torch.tensor(DEVICE_QUERIES, dtype=torch.int32), SMALL_OUT_CAP)
+    assert got[0].shape == (SMALL_OUT_CAP,)
+    assert int(got[2]) > SMALL_OUT_CAP
+    _assert_device_batch(got, jax_device_batches[SMALL_OUT_CAP])
+
+
+def test_successors_batch_device_steady_state(emit_graph, jax_device_batches,
+                                              torch_emit_ra, monkeypatch):
+    """Once the 2048-lane plan is verified, a batch runs decode_emit once
+    (mark_deg) and the cached post-pass and gather with no tensor read to
+    the host outside the kernel's plain version, and gives the same
+    batch."""
+    from test_torch_emit_pipeline import _NoHostSync
+
+    ra = torch_emit_ra
+    q = torch.tensor(DEVICE_QUERIES)
+    pl = {}
+    for _ in range(4):
+        ra.successors_batch_device(q)
+        pl = ra.dec._plans[("emit", ra.FULL_DECODE_LANES)]
+        if pl.get("verified") and "fx_offs" in pl.get("post_meta", {}):
+            break
+    assert pl.get("verified"), "plan never reached the verified state"
+    real, calls, guard = graph_decode.decode_emit, [], _NoHostSync()
+
+    def spy(*args, **kw):
+        calls.append(kw.get("mark_deg"))
+        guard.__exit__()
+        try:
+            return real(*args, **kw)
+        finally:
+            guard.__enter__()
+
+    monkeypatch.setattr(graph_decode, "decode_emit", spy)
+    with guard:
+        got = ra.successors_batch_device(q)
+    assert calls == [True]
+    _assert_device_batch(got, jax_device_batches[None],
+                         emit_graph[0].to_lists())
+
+
+@pytest.fixture(scope="module")
+def cpu_csr_server(emit_graph):
+    """One CPU decoder for the wave and CSR cases below, its CSR built
+    once for the csr and serve cases."""
+    dec = TorchGraphDecoder(TorchGraph(*emit_graph[1]), device="cpu")
+    return TorchCsrServer(dec, num_lanes=16)
+
+
+@pytest.mark.parametrize("api", ["wave", "csr", "serve", "emit_lanes",
+                                 "emit_full"])
+def test_host_apis_take_tensor_queries(emit_graph, torch_emit_ra,
+                                       cpu_csr_server, api):
+    """Each batch API takes a torch tensor of queries (moved to the host
+    once; serve keeps it on its device) and gives what the numpy input
+    gives: the input graph's lists."""
+    adj = emit_graph[0]
+    lists = adj.to_lists()
+    rng = np.random.default_rng(8)
+    q = (rng.integers(0, adj.num_nodes, 40) if api == "emit_full"
+         else np.array([5, 0, 399, 5, 77]))
+    srv = cpu_csr_server
+    if api == "serve":
+        for a, b in zip(srv.serve(torch.from_numpy(q)), srv.serve(q)):
+            assert torch.equal(a, b)
+        return
+    ra = {"wave": lambda: TorchRandomAccess(srv.dec),
+          "csr": lambda: srv,
+          "emit_lanes": lambda: torch_emit_ra,
+          "emit_full": lambda: torch_emit_ra}[api]()
+    if api.startswith("emit"):
+        assert ra._full_decode_cheaper(len(np.unique(q))) == (
+            api == "emit_full")
+    got = ra.successors_batch(torch.from_numpy(q)).to_lists()
+    assert got == ra.successors_batch(q).to_lists() == [lists[x] for x in q]
+
+
+def test_hc_safe_break_artifact_keeps_the_merged_emit(monkeypatch):
+    """A small high-compression artifact with safe breaks (window 16,
+    unbounded references, min interval 4, a reference root every 32
+    nodes), the JAX bench's hc format: decode_to_adjacency_device splits
+    at reference-safe nodes and runs the merged emit with no halo into its
+    verified steady state, never the sort path, and gives the input lists
+    on every call."""
+    from test_torch_emit_pipeline import _assert_lists
+
+    adj = synth_web_graph(300, seed=13)
+    res = compress_adjacency(adj, 16, 2_000_000_000, 4,
+                             safe_break_interval=32)
+    dec = TorchGraphDecoder(TorchGraph(res.prelude, res.states,
+                                       res.pointers), device="cpu")
+    real, calls = graph_decode.decode_emit, []
+
+    def counted(*args, **kw):
+        calls.append(kw.get("mark_deg", False))
+        return real(*args, **kw)
+
+    def no_sort_path(*args):
+        raise AssertionError("the sort path served the hc artifact")
+
+    monkeypatch.setattr(graph_decode, "decode_emit", counted)
+    monkeypatch.setattr(dec, "_adjacency_via_sort_path", no_sort_path)
+    for _ in range(4):
+        _assert_lists(adj, *dec.decode_to_adjacency_device(16))
+        pl = dec._plans[("emit", 16)]
+        if pl.get("verified") and "fx_offs" in pl.get("post_meta", {}):
+            break
+    assert pl.get("verified") and pl.get("safe_np") is not None
+    assert np.array_equal(pl["hstarts_np"], pl["starts_np"])
+    calls.clear()
+    _assert_lists(adj, *dec.decode_to_adjacency_device(16))
+    assert calls == [True] and not pl.get("emit_broken")

@@ -111,6 +111,34 @@ def emit_split(cost: np.ndarray, halo: np.ndarray, safe, num_lanes: int,
     return bounds if fits else None
 
 
+SAFE_PASSES = 64
+
+
+def safe_nodes(parent: np.ndarray, has_ref: np.ndarray,
+               passes: int = SAFE_PASSES):
+    """safe[x] is True iff the suffix minimum of the nodes' ancestor
+    minima from x on is >= x: no reference chain crosses a lane boundary
+    placed at x. The ancestor minimum resolves forward (parents precede
+    children) for at most `passes` passes, as the reference's loop does;
+    a chain deeper than that leaves some minima unresolved. Returns
+    (safe, the passes that updated a node, the nodes another pass would
+    still update: 0 once the loop has converged)."""
+    n = len(parent)
+    am = np.arange(n, dtype=np.int64)
+    ran = 0
+    for _ in range(passes):
+        upd = has_ref & (am[parent] < am)
+        if not upd.any():
+            break
+        am = np.where(upd, am[parent], am)
+        ran += 1
+    still = int((has_ref & (am[parent] < am)).sum()) if ran == passes else 0
+    sm = np.minimum.accumulate(am[::-1])[::-1]
+    safe = np.ones(n, bool)
+    safe[1:] = sm[1:] >= np.arange(1, n)
+    return safe, ran, still
+
+
 def _all_done(ok: torch.Tensor, cap: int, what: str):
     """The check of the full launch at the grown cap."""
     if not bool(ok.all()):
@@ -660,27 +688,21 @@ class TorchGraphDecoder:
                   cap=-(-est // UNROLL) * UNROLL)
         return pl
 
+    def _reference_parents(self):
+        """(parent [n] int64, has_ref [n] bool, the lanes' token counts):
+        each node's reference target, from one aux-mode token decode at
+        2048 lanes (plan time only)."""
+        out, counts, cap = self.decode_raw(2048, emit_aux=True)
+        st = parse_stats(out, self.num_nodes, cap)
+        return (st["parent"].cpu().numpy().astype(np.int64),
+                st["depth"].cpu().numpy() > 0, counts)
+
     def _safe_boundaries(self) -> np.ndarray:
         """safe[x] is True iff no reference chain crosses a lane boundary
-        placed at x (suffix minimum of the ancestor minima >= x). The
-        parent table comes from one aux-mode token decode at 2048 lanes
-        (plan time only)."""
-        n = self.num_nodes
-        out, _, cap = self.decode_raw(2048, emit_aux=True)
-        st = parse_stats(out, n, cap)
-        parent = st["parent"].cpu().numpy().astype(np.int64)
-        ref_mask = st["depth"].cpu().numpy() > 0
-        am = np.arange(n, dtype=np.int64)
-        # ancestor minimum resolves forward (parents precede children)
-        for _ in range(64):
-            upd = ref_mask & (am[parent] < am)
-            if not upd.any():
-                break
-            am = np.where(upd, am[parent], am)
-        sm = np.minimum.accumulate(am[::-1])[::-1]
-        safe = np.ones(n, bool)
-        safe[1:] = sm[1:] >= np.arange(1, n)
-        return safe
+        placed at x (safe_nodes over _reference_parents, SAFE_PASSES
+        passes)."""
+        parent, has_ref, _ = self._reference_parents()
+        return safe_nodes(parent, has_ref)[0]
 
     def _emit_servable(self, T: int) -> bool:
         """Whether the merged-emit kernel can run a plan with a T-row ring

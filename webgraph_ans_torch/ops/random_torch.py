@@ -20,7 +20,9 @@ webgraph BvGraph recursion). Three batched forms:
   size where that re-decodes more than the whole graph, a full merged-emit
   decode and a device gather. Lanes that run past the cap run again alone
   at twice the cap; lists the kernel cannot resolve in their lane go to
-  the wave decode.
+  the wave decode. Its successors_batch_device is the device-resident
+  serving contract: device queries in, (outv, offs, total) on the device
+  out, from a full merged-emit decode of the artifact each batch.
 
 Entry points run on the decoder's device (CUDA unless the decoder was made
 with device="cpu").
@@ -57,6 +59,23 @@ def _ragged_adjacency(pool: np.ndarray, ubase: np.ndarray,
     src = (np.repeat(ubase[inv] - out_off[:-1], qlens)
            + np.arange(int(out_off[-1]), dtype=np.int64))
     return Adjacency(out_off.astype(np.uint64), pool[src])
+
+
+def _host_queries(query_nodes) -> np.ndarray:
+    """Query nodes as a host int64 array: a torch tensor (on any device)
+    is copied to the host once, anything else goes through np.asarray."""
+    if isinstance(query_nodes, torch.Tensor):
+        return query_nodes.cpu().numpy().astype(np.int64)
+    return np.asarray(query_nodes, dtype=np.int64)
+
+
+def _device_queries(query_nodes, device: torch.device) -> torch.Tensor:
+    """Query nodes as an int32 tensor on `device`: a tensor is cast there
+    with no host round trip, a host array is uploaded once."""
+    if isinstance(query_nodes, torch.Tensor):
+        return query_nodes.to(device=device, dtype=I32)
+    return torch.from_numpy(
+        np.asarray(query_nodes, np.int64).astype(np.int32)).to(device)
 
 
 class TorchRandomAccess:
@@ -157,8 +176,9 @@ class TorchRandomAccess:
         halo > 0 also decodes, in the first wave, the segments of the
         `halo` nodes before each query, where on serial artifacts its
         reference chain lies: one wave then covers chains up to that
-        deep. Only the queries' reference closure is reconstructed."""
-        query = np.asarray(query_nodes, dtype=np.int64)
+        deep. Only the queries' reference closure is reconstructed.
+        query_nodes may be a host array or a torch tensor."""
+        query = _host_queries(query_nodes)
         if not len(query):
             return Adjacency(np.zeros(1, np.uint64), np.zeros(0, np.uint32))
         nseg = len(self._entry_nodes)
@@ -277,11 +297,12 @@ class TorchCsrServer:
 
     def serve(self, queries, out_cap: int | None = None):
         """(out, out_off, total) on the device for one query batch:
-        out[:total] is the concatenation of the queried lists. out_cap
-        defaults to 8 successors a query; a batch past it runs once more
-        at the exact total."""
-        q = torch.as_tensor(np.asarray(queries, dtype=np.int32)).to(
-            self.succs.device)
+        out[:total] is the concatenation of the queried lists. queries may
+        be a tensor (cast to int32 on the CSR's device, with no host round
+        trip) or a host array (uploaded once). out_cap defaults to 8
+        successors a query; a batch past it runs once more at the exact
+        total."""
+        q = _device_queries(queries, self.succs.device)
         if out_cap is None:
             out_cap = _quant(int(q.shape[0]) * 8)
         out, out_off, total = gather_rows(self.offsets, self.succs, q,
@@ -292,6 +313,7 @@ class TorchCsrServer:
         return out, out_off, total
 
     def successors_batch(self, queries) -> Adjacency:
+        """The lists of queries (a host array or a tensor) on the host."""
         out, out_off, total = self.serve(queries)
         return Adjacency(out_off.cpu().numpy().astype(np.uint64),
                          out[:int(total)].cpu().numpy().astype(np.uint32))
@@ -322,8 +344,10 @@ def _gather_padded(succs2d, starts_flat, degs, qp, out_cap: int):
                              0, out_cap).long()
     ids = torch.zeros(out_cap + 1, dtype=I32, device=dev)
     ids[starts_pos] = torch.arange(B, dtype=I32, device=dev)
+    # index_fill_ takes the scalar as a kernel argument: `mark[pos] =
+    # True` would copy a host scalar to the card, a host synchronisation
     mark = torch.zeros(out_cap + 1, dtype=torch.bool, device=dev)
-    mark[starts_pos] = True
+    mark.index_fill_(0, starts_pos, True)
     node = _fill_forward(mark[:out_cap], ids[:out_cap])
     src = delta[node.long()] + g * G
     flat = succs2d.reshape(-1)
@@ -509,14 +533,43 @@ class TorchEmitRandomAccess:
             "seconds": time.perf_counter() - t0})
         return pool, offs_h, clean, done
 
+    FULL_DECODE_LANES = 2048
+
+    def successors_batch_device(self, query_nodes, out_cap: int | None
+                                = None):
+        """Device-resident batch random access, the serving contract of
+        the reference's TpuEmitRandomAccess.successors_batch_device: the
+        whole graph is decoded from the compressed artifact by the merged
+        emit (decode_to_adjacency_device at 2048 lanes; no cache across
+        batches: in the verified steady state one CUDA graph replay), then
+        each query's list is cut out on the device.
+
+        query_nodes: a torch int tensor on any device (cast to int32 on
+        the decoder's device, with no host round trip: the serving case,
+        queries from an earlier kernel) or a host array (uploaded once).
+        Duplicates are enumerated each time. Returns (outv [out_cap]
+        int32, offs [B+1] int32, total) on the device: query i's list is
+        outv[offs[i]:offs[i+1]]. out_cap defaults to mean-degree sizing
+        (_full_out_cap); past it offs and total stay exact and outv is
+        cut off: the caller decides (total is a device scalar that
+        depends on the whole pipeline, so reading it drains the batch).
+        In the steady state the call issues no host synchronisation."""
+        d = self.dec
+        qd = _device_queries(query_nodes, d.device)
+        adj = d.decode_to_adjacency_device(self.FULL_DECODE_LANES)
+        if out_cap is None:
+            out_cap = self._full_out_cap(qd.shape[0])
+        return _gather_padded(*adj, qd, out_cap)
+
     def _batch_via_full_decode(self, q: np.ndarray, inv: np.ndarray):
         d = self.dec
-        adj = d.decode_to_adjacency_device(2048)
-        qd = torch.from_numpy(q.astype(np.int32)).to(d.device)
+        qd = _device_queries(q, d.device)
+        adj = d.decode_to_adjacency_device(self.FULL_DECODE_LANES)
         outv, offs, total = _gather_padded(*adj, qd,
                                            self._full_out_cap(len(q)))
         if int(total) > outv.shape[0]:
             # offs is exact past the buffer: gather once more, at size
+            # (the reference raises here)
             outv, offs, _ = _gather_padded(*adj, qd, _quant(int(total)))
         self.last_rounds, self.last_unclean = [], 0
         self.last_wave_seconds = 0.0
@@ -532,8 +585,11 @@ class TorchEmitRandomAccess:
                           * 1.4) + 64)
 
     def successors_batch(self, query_nodes, cap: int = 768) -> Adjacency:
+        """The lists of query_nodes (a host array or a torch tensor,
+        repeats allowed) in query order, on the host: per-query lanes
+        below the full-decode point, a full merged-emit decode past it."""
         d = self.dec
-        query = np.asarray(query_nodes, dtype=np.int64)
+        query = _host_queries(query_nodes)
         if not len(query):
             return Adjacency(np.zeros(1, np.uint64), np.zeros(0, np.uint32))
         q, inv = np.unique(query, return_inverse=True)
