@@ -1,0 +1,8 @@
+"""Share of the traced query window in which the card ran nothing."""
+
+
+def read(run):
+    tr = run.trace
+    if run.entry != "query" or not tr:
+        return None
+    return 100 * (1 - tr["busy_s"] / tr["window_s"])
