@@ -1,0 +1,23 @@
+"""The ms a batch of the traced query window that the port's host waits
+on the card for a read-back: the `fetch` spans of each `ra.batch` call
+(the wave decode's included), averaged over the batches that started in
+the traced window. None off the card, or where the program records no
+such span."""
+
+
+def read(run):
+    if run.entry != "query" or run.peak_bytes is None:
+        return None
+    try:
+        from webgraph_ans_torch.utils import trace
+    except ImportError:
+        return None
+    win = [s for s in run.spans.items if s["name"] == "batch"
+           and s.get("traced")]
+    batches = trace.calls("ra.batch", win[0]["start"],
+                          win[-1]["end"]) if win else []
+    if not batches:
+        return None
+    fetch = [sum(s.seconds for s in call if s.name == "fetch")
+             for _, call in batches]
+    return 1e3 * sum(fetch) / len(fetch)

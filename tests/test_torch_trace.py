@@ -1,0 +1,303 @@
+"""The port's spans, stages and counters (webgraph_ans_torch/utils/trace.py)
+on its two entry points: batch random access
+(TorchEmitRandomAccess.successors_batch) and the full decode
+(TorchGraphDecoder.decode_to_adjacency_device). Plain PyTorch on the CPU
+on small graphs; the host synchronisations against
+torch.cuda.set_sync_debug_mode on cnr-2000 need the card (marker `cuda`:
+`python -m pytest tests/test_torch_trace.py -m cuda -s` there)."""
+
+import collections
+import json
+import os
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from webgraph_ans_torch.bvgraph.graph import Adjacency
+from webgraph_ans_torch.bvgraph.random_access import ANSBvGraph
+from webgraph_ans_torch.bvgraph.store import compress_adjacency, store
+from webgraph_ans_torch.bvgraph.synth import synth_web_graph
+from webgraph_ans_torch.ops import cuda_build, decode_cuda, emit_cuda
+from webgraph_ans_torch.ops.graph_decode import TorchGraphDecoder
+from webgraph_ans_torch.ops.random_torch import TorchEmitRandomAccess
+from webgraph_ans_torch.utils import trace
+
+CPU = torch.profiler.ProfilerActivity.CPU
+PLAN = ["plan.bounds", "plan.first", "plan.refine", "plan.safe",
+        "plan.verify"]
+LANES = 16
+CNR = os.path.join(os.path.dirname(__file__), "data", "cnr-2000", "cnr-2000")
+
+
+def _last_id():
+    recorded = trace.spans() + trace.stages()
+    return max((s.id for s in recorded), default=0)
+
+
+def _since(mark, recorded):
+    return [s for s in recorded if s.id > mark]
+
+
+@pytest.fixture(scope="module")
+def steady_decoder():
+    """A 400-node graph's decoder taken into the steady state with the
+    profiler off, and the stages its cold calls recorded."""
+    adj = synth_web_graph(400, seed=5)
+    res = compress_adjacency(adj)
+    dec = TorchGraphDecoder(ANSBvGraph(res.prelude, res.states,
+                                       res.pointers), device="cpu")
+    mark = _last_id()
+    while not dec._plans.get(("emit", LANES), {}).get("verified"):
+        dec.decode_to_adjacency_device(LANES)
+    return adj, dec, _since(mark, trace.stages())
+
+
+@pytest.fixture(scope="module")
+def chain_ra():
+    """Random access on a graph whose reference chains run past the
+    per-query lanes' halo (window 1, chains of 20): a batch at cap 8 runs
+    rounds at caps 8..256 and sends two queries to the wave decode."""
+    chain = [list(range(0, 90, 3))] * 400
+    res = compress_adjacency(Adjacency.from_lists(chain), 1, 20, 2)
+    dec = TorchGraphDecoder(ANSBvGraph(res.prelude, res.states,
+                                       res.pointers), device="cpu")
+    return chain, TorchEmitRandomAccess(dec)
+
+
+QUERIES = [3, 50, 60, 50, 399]
+
+
+@pytest.fixture(scope="module")
+def profiled_batch(chain_ra, tmp_path_factory):
+    """One batch under torch.profiler: (ra, its answer, the spans it
+    recorded, the host_syncs it counted, the exported trace's events)."""
+    _, ra = chain_ra
+    mark = _last_id()
+    syncs = trace.counters().get("host_syncs", 0)
+    with torch.profiler.profile(activities=[CPU]) as prof:
+        adj = ra.successors_batch(QUERIES, cap=8)
+    syncs = trace.counters().get("host_syncs", 0) - syncs
+    path = str(tmp_path_factory.mktemp("trace") / "batch.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return ra, adj, _since(mark, trace.spans()), syncs, events
+
+
+def test_a_batch_is_one_call_under_one_root(chain_ra, profiled_batch):
+    lists, _ = chain_ra
+    ra, adj, spans, syncs, _ = profiled_batch
+    assert adj.to_lists() == [lists[q] for q in QUERIES]
+    roots = [s for s in spans if s.parent is None]
+    assert [r.name for r in roots] == ["ra.batch"]
+    root = roots[0]
+    assert {s.call for s in spans} == {root.id}
+    assert root.attrs == {"queries": 5, "unique": 4}
+    names = collections.Counter(s.name for s in spans)
+    assert names["ra.round"] == len(ra.last_rounds) == 6
+    assert ra.last_unclean == 2
+    assert names["ra.wave"] == names["wave"] == names["ra.assemble"] == 1
+    assert names["wave.segments"] == names["wave.follow"] >= 1
+    # every read-back is a fetch span; the batch counts what its call did
+    assert root.syncs == syncs > names["fetch"] >= 2 * len(ra.last_rounds)
+    ids = {s.id: s for s in spans}
+    for s in spans:
+        if s.parent is not None:
+            up = ids[s.parent]
+            assert up.start <= s.start <= s.end <= up.end
+
+
+def test_round_and_wave_seconds_are_the_spans_lengths(profiled_batch):
+    ra, _, spans, _, _ = profiled_batch
+    rounds = [s for s in spans if s.name == "ra.round"]
+    assert [r["seconds"] for r in ra.last_rounds] == [s.seconds
+                                                      for s in rounds]
+    assert [r["cap"] for r in ra.last_rounds] == [s.attrs["cap"]
+                                                  for s in rounds]
+    (wave,) = [s for s in spans if s.name == "ra.wave"]
+    assert ra.last_wave_seconds == wave.seconds
+
+
+def test_the_chrome_trace_holds_a_range_for_each_span(profiled_batch):
+    _, _, spans, _, events = profiled_batch
+    ranges = collections.Counter(
+        e["name"] for e in events if e.get("ph") == "X"
+        and e.get("cat") == "user_annotation"
+        and e["name"].startswith("wgans."))
+    assert ranges == collections.Counter("wgans." + s.name for s in spans)
+
+
+def test_cold_decode_records_each_plan_stage_once(steady_decoder):
+    """With the profiler off: one stage for each planning step, the two
+    splits inside the split and the verification, and no span."""
+    _, dec, stages = steady_decoder
+    top = [s for s in stages if s.name.startswith("plan.")]
+    assert sorted(s.name for s in top) == PLAN
+    assert all(s.parent is None and s.seconds > 0 for s in top)
+    by_id = {s.id: s for s in stages}
+    splits = [s for s in stages if s.name == "emit.split"]
+    assert [(s.attrs["model"], by_id[s.parent].name) for s in splits] == [
+        ("elements", "plan.bounds"), ("rows", "plan.verify")]
+    # a planning call reads back what it plans from; the steady state
+    # reads nothing back
+    assert all(s.syncs > 0 for s in top if s.name != "plan.refine")
+
+
+def test_steady_decode_under_a_profiler_syncs_nothing(steady_decoder):
+    adj, dec, _ = steady_decoder
+    mark = _last_id()
+    with torch.profiler.profile(activities=[CPU]):
+        succs2d, starts, degs = dec.decode_to_adjacency_device(LANES)
+    # on the CPU the plain merged emit runs its rANS steps' unfolds
+    spans = [s for s in _since(mark, trace.spans()) if s.name != "rans.fold"]
+    assert [s.name for s in spans] == ["decode.steady", "decode"]
+    steady, root = spans
+    assert root.parent is None and steady.parent == root.id
+    assert {s.call for s in _since(mark, trace.spans())} == {root.id}
+    assert root.syncs == steady.syncs == 0
+    assert root.attrs == {"lanes": LANES}
+    assert np.array_equal(degs.numpy(), np.diff(adj.offsets.astype(
+        np.int64)))
+
+
+def test_no_span_without_a_profiler(steady_decoder, chain_ra):
+    """Steady calls of both entry points record nothing per call while no
+    profiler runs; the round and wave records keep their seconds."""
+    _, dec, _ = steady_decoder
+    _, ra = chain_ra
+    mark = _last_id()
+    dec.decode_to_adjacency_device(LANES)
+    ra.successors_batch(QUERIES, cap=8)
+    assert _since(mark, trace.spans() + trace.stages()) == []
+    assert all(r["seconds"] > 0 for r in ra.last_rounds)
+    assert ra.last_wave_seconds > 0
+
+
+@pytest.mark.parametrize("case", ["vector", "scalar", "bool", "empty",
+                                  "upload", "empty upload"])
+def test_each_copy_counts_one_host_sync(case):
+    """A copy between host and device counts one host synchronisation; an
+    empty one copies nothing and counts none."""
+    host = np.arange(6, dtype=np.int32).reshape(2, 3)
+    if case.startswith("empty"):
+        host = host[:0]
+    before = trace.counters().get("host_syncs", 0)
+    mark = _last_id()
+    with torch.profiler.profile(activities=[CPU]):
+        if case.endswith("upload"):
+            got = trace.upload(host, "cpu").numpy()
+            want = host
+        else:
+            t = {"vector": torch.from_numpy(host),
+                 "empty": torch.from_numpy(host),
+                 "scalar": torch.tensor(7, dtype=torch.int64),
+                 "bool": torch.tensor([True, False]).all()}[case]
+            got, want = trace.fetch(t), t.numpy()
+    assert trace.counters().get("host_syncs", 0) == before + (
+        not case.startswith("empty"))
+    assert np.array_equal(got, want) and got.dtype == want.dtype
+    spans = _since(mark, trace.spans())
+    if case.endswith("upload"):
+        assert spans == []
+    else:
+        (s,) = spans
+        assert (s.name, s.syncs, s.attrs["bytes"]) == (
+            "fetch", int(case != "empty"), want.nbytes)
+
+
+def test_stages_nest_and_timed_spans_keep_seconds():
+    mark = _last_id()
+    with trace.stage("outer", k=1) as outer:
+        with trace.stage("inner") as inner:
+            with trace.timed("off") as t:
+                pass
+        outer.set(k=2)
+    assert _since(mark, trace.stages()) == [inner, outer]
+    assert (outer.parent, outer.call, outer.attrs) == (None, outer.id,
+                                                       {"k": 2})
+    assert (inner.parent, inner.call) == (outer.id, outer.id)
+    assert t.seconds >= 0 and _since(mark, trace.spans()) == []
+    assert outer.start <= inner.start <= inner.end <= outer.end
+
+
+@pytest.mark.parametrize("fresh", [True, False])
+def test_kernel_build_is_a_stage(fresh, tmp_path, monkeypatch):
+    source = tmp_path / "k.cu"
+    source.write_text("// nothing\n")
+    lib = str(tmp_path / "libk.so")
+    monkeypatch.setattr(cuda_build, "_fresh", lambda s, p: fresh)
+    monkeypatch.setattr(cuda_build, "_command",
+                        lambda s, tmp: ["touch", tmp])
+    before = trace.counters().get("kernel_builds", 0)
+    mark = _last_id()
+    (res,) = cuda_build.build_many([(str(source), lib)])
+    (st,) = _since(mark, trace.stages())
+    assert (st.name, st.attrs["sources"]) == ("kernel.build", ["k.cu"])
+    assert st.attrs["built"] == ([] if fresh else ["k.cu"])
+    assert res["built"] is (not fresh)
+    assert trace.counters().get("kernel_builds", 0) == before + (not fresh)
+    assert fresh or os.path.exists(lib)
+
+
+def test_counters_carry_the_launch_counts():
+    c = trace.counters()
+    assert c["decode_emit"] == emit_cuda.decode_emit.launches
+    assert c["decode_blocks"] == decode_cuda.decode_blocks.launches
+    assert c["decode_blocks_aux"] == decode_cuda.decode_blocks.aux_launches
+
+
+def _sync_warnings(fn):
+    """(fn's result, the synchronisations torch.cuda.set_sync_debug_mode
+    reported during it as file:line, the host_syncs it counted)."""
+    before = trace.counters().get("host_syncs", 0)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in seen
+             if "synchroniz" in str(w.message)]
+    return out, where, trace.counters().get("host_syncs", 0) - before
+
+
+@pytest.mark.cuda
+def test_host_syncs_match_sync_debug_mode(tmp_path):
+    """On the card, cnr-2000 at the benchmark's store parameters: each
+    call's host_syncs equals the synchronisations that
+    set_sync_debug_mode("warn") reports, for the batches and the steady
+    decodes (0) after the warm-up; the cold calls are printed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    store(CNR, str(tmp_path / "cnr"), 7, 3, 2)
+    dec = TorchGraphDecoder(ANSBvGraph.load(str(tmp_path / "cnr")))
+    ra = TorchEmitRandomAccess(dec)
+    rng = np.random.default_rng(2147483659)
+    rows = []
+    for i in range(20):
+        q = rng.integers(0, dec.num_nodes, 4096)
+        caps = trace.counters().get("ra_graph_captures", 0)
+        _, where, syncs = _sync_warnings(lambda: ra.successors_batch(q))
+        rows.append({"call": "batch", "i": i, "warned": len(where),
+                     "host_syncs": syncs,
+                     "captures": trace.counters()["ra_graph_captures"]
+                     - caps, "rounds": len(ra.last_rounds),
+                     "unclean": ra.last_unclean,
+                     "sites": dict(collections.Counter(where))})
+    for i in range(12):
+        _, where, syncs = _sync_warnings(
+            lambda: dec.decode_to_adjacency_device(2048))
+        torch.cuda.synchronize()
+        rows.append({"call": "decode", "i": i, "warned": len(where),
+                     "host_syncs": syncs,
+                     "sites": dict(collections.Counter(where))})
+    for r in rows:
+        print(json.dumps(r))
+    warm = [r for r in rows if r["i"] >= 8]
+    assert [(r["warned"], r["host_syncs"]) for r in warm] == [
+        (r["host_syncs"], r["host_syncs"]) for r in warm]
+    assert all(r["host_syncs"] == 0 for r in warm if r["call"] == "decode")

@@ -17,6 +17,8 @@ import time
 
 import torch
 
+from ..utils import trace
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
@@ -56,15 +58,27 @@ def _fresh(source: str, lib_path: str) -> bool:
 
 def build(source: str, lib_path: str, force: bool = False) -> dict:
     """Compiles `source` into `lib_path` unless an up-to-date build exists.
-    Returns {"path", "seconds", "log"} (log: nvcc's -Xptxas -v report,
-    empty when nothing was built)."""
+    Returns {"path", "seconds", "log", "built"} (log: nvcc's -Xptxas -v
+    report, empty when nothing was built)."""
     return build_many([(source, lib_path)], force)[0]
 
 
 def build_many(pairs, force: bool = False) -> list:
     """Builds several (source, lib_path) pairs with one nvcc each, all
     started together. Returns build()'s dicts in order; raises naming
-    every failed source once all compilers have finished."""
+    every failed source once all compilers have finished. A
+    `kernel.build` stage (its sources, and those it built); each nvcc run
+    counts in `kernel_builds`."""
+    names = [os.path.basename(source) for source, _ in pairs]
+    with trace.stage("kernel.build", sources=names) as stage:
+        results = _build_many(pairs, force)
+        built = [n for n, r in zip(names, results) if r["built"]]
+        stage.set(built=built)
+    trace.count("kernel_builds", len(built))
+    return results
+
+
+def _build_many(pairs, force: bool) -> list:
     t0 = time.perf_counter()
     procs = []
     for source, lib_path in pairs:
@@ -79,7 +93,8 @@ def build_many(pairs, force: bool = False) -> list:
     results, errors = [], []
     for (source, lib_path), entry in zip(pairs, procs):
         if entry is None:
-            results.append({"path": lib_path, "seconds": 0.0, "log": ""})
+            results.append({"path": lib_path, "seconds": 0.0, "log": "",
+                            "built": False})
             continue
         tmp, proc = entry
         log, _ = proc.communicate()
@@ -89,7 +104,8 @@ def build_many(pairs, force: bool = False) -> list:
             continue
         os.replace(tmp, lib_path)
         results.append({"path": lib_path,
-                        "seconds": time.perf_counter() - t0, "log": log})
+                        "seconds": time.perf_counter() - t0, "log": log,
+                        "built": True})
     if errors:
         raise KernelError("\n".join(errors))
     return results

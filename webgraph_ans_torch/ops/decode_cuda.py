@@ -34,8 +34,8 @@ _lib = None
 
 def build(force: bool = False) -> dict:
     """Compiles the kernel into LIB_PATH unless an up-to-date build exists.
-    Returns {"path", "seconds", "log"} (log: nvcc's -Xptxas -v report,
-    empty when nothing was built)."""
+    Returns {"path", "seconds", "log", "built"} (log: nvcc's -Xptxas -v
+    report, empty when nothing was built)."""
     return cuda_build.build(SOURCE, LIB_PATH, force)
 
 

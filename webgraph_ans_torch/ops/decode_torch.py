@@ -40,6 +40,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import trace
+
 # rANS constants (reference: src/ans/mod.rs:18-24).
 B = 16
 LOWER_BOUND = 1 << 16
@@ -182,8 +184,9 @@ def _comp_table(params, device) -> torch.Tensor:
 def ans_decode_step(tables: DecoderTables, ctab, state, ptr, comp, active):
     """One rANS decode step per lane (reference: src/ans/decoder.rs:58-87):
     LUT read, u32 state update, 16-bit refills, quasi-unfold up to the
-    model's maximum fold count. state/ptr/comp int64 [L]; `active` masks
-    lanes. Returns (value, state, ptr), unchanged on inactive lanes."""
+    model's maximum fold count (a `rans.fold` span each). state/ptr/comp
+    int64 [L]; `active` masks lanes. Returns (value, state, ptr),
+    unchanged on inactive lanes."""
     slots, max_folds = tables.params[9], tables.params[10]
     cp = ctab[comp]
     offset, log_m, mask, radix, fold_off = cp.unbind(1)
@@ -212,13 +215,14 @@ def ans_decode_step(tables: DecoderTables, ctab, state, ptr, comp, active):
     fold = torch.zeros_like(state)
     folds_left = torch.where(active, folds, 0)
     for _ in range(max_folds):
-        a = folds_left > 0
-        new_state, new_ptr = refill(new_state, new_ptr, a)
-        fold = torch.where(a, ((fold << radix) | (new_state & radix_mask))
-                           & M32, fold)
-        new_state = torch.where(a, new_state >> radix, new_state)
-        new_state, new_ptr = refill(new_state, new_ptr, a)
-        folds_left = folds_left - a.long()
+        with trace.span("rans.fold"):
+            a = folds_left > 0
+            new_state, new_ptr = refill(new_state, new_ptr, a)
+            fold = torch.where(a, ((fold << radix)
+                                   | (new_state & radix_mask)) & M32, fold)
+            new_state = torch.where(a, new_state >> radix, new_state)
+            new_state, new_ptr = refill(new_state, new_ptr, a)
+            folds_left = folds_left - a.long()
     value = prefix | fold
     return (value, torch.where(active, new_state, state),
             torch.where(active, new_ptr, ptr))
@@ -421,7 +425,7 @@ def seed_rings(tables: DecoderTables, states, ptrs, starts, window: int,
     node 0 are ignored. Returns int32 [L, window+1] with outdegrees at
     slots node % (window+1). ctab: the codec parameter table
     (_comp_table) already on the device, for a caller recording a CUDA
-    graph, where no host copy may run."""
+    graph, where no host copy may run. A `rings` span."""
     L = states.shape[0]
     R = window + 1
     dev = states.device
@@ -429,18 +433,22 @@ def seed_rings(tables: DecoderTables, states, ptrs, starts, window: int,
         return torch.zeros((L, 1), dtype=torch.int32, device=dev)
     if ctab is None:
         ctab = _comp_table(tables.params, dev)
+        trace.count("host_syncs")       # the table's copy to the device
     # every (lane, pre-node) pair is one decode step, all in one call; the
     # window's nodes are consecutive, so their slots mod R are distinct
-    node = starts.long()[:, None] - window + torch.arange(window, device=dev)
-    valid = node >= 0
-    comp = torch.zeros(L * window, dtype=torch.int64, device=dev)  # OUTDEGREE
-    v, _, _ = ans_decode_step(tables, ctab,
-                              states.reshape(-1).long() & M32,
-                              ptrs.reshape(-1).long(), comp,
-                              valid.reshape(-1))
-    ring = torch.zeros((L, R), dtype=torch.int64, device=dev)
-    ring.scatter_(1, node % R, torch.where(valid, v.view(L, window), 0))
-    return _to_i32(ring)
+    with trace.span("rings", lanes=L):
+        node = (starts.long()[:, None] - window
+                + torch.arange(window, device=dev))
+        valid = node >= 0
+        comp = torch.zeros(L * window, dtype=torch.int64,
+                           device=dev)  # OUTDEGREE
+        v, _, _ = ans_decode_step(tables, ctab,
+                                  states.reshape(-1).long() & M32,
+                                  ptrs.reshape(-1).long(), comp,
+                                  valid.reshape(-1))
+        ring = torch.zeros((L, R), dtype=torch.int64, device=dev)
+        ring.scatter_(1, node % R, torch.where(valid, v.view(L, window), 0))
+        return _to_i32(ring)
 
 
 def unpack_block_tokens(vals: np.ndarray, cpk: np.ndarray,
@@ -465,8 +473,8 @@ def unpack_block_tokens(vals: np.ndarray, cpk: np.ndarray,
 def fetch_block_tokens(out: torch.Tensor, counts: torch.Tensor, cap: int):
     """Copies decode output to the host, trimming untouched rows on the
     device first, and unpacks it (see unpack_block_tokens)."""
-    counts_np = counts.cpu().numpy()
+    counts_np = trace.fetch(counts)
     rows = min(cap, -(-max(int(counts_np.max(initial=0)), 1) // 64) * 64)
-    vals = out[:rows].cpu().numpy().view(np.uint32)
-    cpk = out[cap: cap + -(-rows // UNROLL)].cpu().numpy().view(np.uint32)
+    vals = trace.fetch(out[:rows]).view(np.uint32)
+    cpk = trace.fetch(out[cap: cap + -(-rows // UNROLL)]).view(np.uint32)
     return unpack_block_tokens(vals, cpk, counts_np)

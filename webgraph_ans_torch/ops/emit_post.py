@@ -36,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
 from .reconstruct_device import (_cumsum, _cumsum_tok, _quant, _sort2,
                                  unpack_nibbles)
 
@@ -303,10 +304,10 @@ def build_fixup_cache(mc: dict, val_np_provider, device):
     destF = np.where(okf, startsF[nodec] + rank_f * G, mc["SG"])
 
     def dev_i32(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+        return trace.upload(np.ascontiguousarray(a, np.int32), device)
 
     def dev_bool(a):
-        return torch.from_numpy(np.ascontiguousarray(a, bool)).to(device)
+        return trace.upload(np.ascontiguousarray(a, bool), device)
 
     mc["fx_offs"] = tuple(offs)
     mc["fx_rowf"] = dev_i32(np.where(valid, rowf, 0))
@@ -386,12 +387,12 @@ def postprocess(val, xch, nib, lane_of_np, lane_starts_np, n: int,
         return _post_fused(val, xch, nib, mc["lane_of_d"], mc["order_d"],
                            mc["cpos_d"], mc["pdirty_d"], mc["parent_d"], n,
                            mc["roffs"], mc["Dall"])
-    lane_of = torch.from_numpy(np.asarray(lane_of_np, np.int32)).to(dev)
+    lane_of = trace.upload(np.ascontiguousarray(lane_of_np, np.int32), dev)
     tabs = extract_node_tables(val, xch, nib, lane_of, n)
     if "ddep" not in mc:
-        kind = tabs["kind"].cpu().numpy()
-        ref = tabs["ref"].cpu().numpy()
-        span = tabs["span"].cpu().numpy()
+        kind = trace.fetch(tabs["kind"])
+        ref = trace.fetch(tabs["ref"])
+        span = trace.fetch(tabs["span"])
         parent = np.maximum(np.arange(n) - ref, 0)
         dirty = kind == 1
         hasref = ref > 0
@@ -437,12 +438,12 @@ def postprocess(val, xch, nib, lane_of_np, lane_starts_np, n: int,
         mc["cpos_np"] = cpos
         mc["pdirty_np"] = dirty
     mc["lane_of_d"] = lane_of
-    mc["parent_d"] = torch.from_numpy(mc["parent"]).to(dev)
+    mc["parent_d"] = trace.upload(mc["parent"], dev)
     order_p = np.full(max(len(mc["order_np"]), 1), -1, np.int32)
     order_p[:len(mc["order_np"])] = mc["order_np"]
-    mc["order_d"] = torch.from_numpy(order_p).to(dev)
-    mc["cpos_d"] = torch.from_numpy(mc["cpos_np"]).to(dev)
-    mc["pdirty_d"] = torch.from_numpy(mc["pdirty_np"]).to(dev)
+    mc["order_d"] = trace.upload(order_p, dev)
+    mc["cpos_d"] = trace.upload(mc["cpos_np"], dev)
+    mc["pdirty_d"] = trace.upload(mc["pdirty_np"], dev)
     # marker layout for the steady state: rows, kinds and starts of a
     # deterministic kernel on a fixed artifact (values and degrees are
     # decoded again on every call)
@@ -451,20 +452,20 @@ def postprocess(val, xch, nib, lane_of_np, lane_starts_np, n: int,
     mc["kind_d"] = tabs["kind"]
     mc["starts_flat_d"] = tabs["start_el"] * G + lane_of
     if mc["roffs"] and "fx_offs" not in mc:
-        mc["span_np"] = tabs["span"].cpu().numpy().astype(np.int64)
-        mc["start_el_np"] = tabs["start_el"].cpu().numpy().astype(np.int64)
-        mc["deg_np"] = tabs["deg"].cpu().numpy().astype(np.int64)
+        mc["span_np"] = trace.fetch(tabs["span"]).astype(np.int64)
+        mc["start_el_np"] = trace.fetch(tabs["start_el"]).astype(np.int64)
+        mc["deg_np"] = trace.fetch(tabs["deg"]).astype(np.int64)
         mc["lane_of_np"] = np.asarray(lane_of_np).astype(np.int64)
         mc["G"], mc["SG"] = G, S * G
         flatv = val.reshape(-1)
         nibf = nib.reshape(-1)
 
         def provider(rowf):
-            rowf_d = torch.from_numpy(rowf.astype(np.int64)).to(dev)
-            vals = flatv[rowf_d].cpu().numpy()
+            rowf_d = trace.upload(rowf.astype(np.int64), dev)
+            vals = trace.fetch(flatv[rowf_d])
             row, lane = rowf_d // G, rowf_d % G
             words = nibf[(row >> 3) * G + lane].long() & 0xFFFFFFFF
-            codes = ((words >> ((row & 7) * 4)) & 0xF).cpu().numpy()
+            codes = trace.fetch((words >> ((row & 7) * 4)) & 0xF)
             return vals, codes
 
         build_fixup_cache(mc, provider, dev)

@@ -34,6 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
+
 from .decode_torch import (M32, P_BC, P_BLK, P_DONE, P_FR, P_IC, P_IL,
                            P_IS, P_OUT, P_REF, P_RES, UNROLL, DecoderTables,
                            _comp_table, _to_i32, ans_decode_step)
@@ -87,7 +89,7 @@ def _lane_array(x, dev) -> torch.Tensor:
     tensor already there is not copied through the host."""
     if isinstance(x, torch.Tensor):
         return x.to(dev, torch.int64)
-    return torch.as_tensor(np.asarray(x, np.int64)).to(dev)
+    return trace.upload(np.ascontiguousarray(x, np.int64), dev)
 
 
 def emit_init_regs(states, starts, ends, ring, window: int,
@@ -108,7 +110,7 @@ def emit_init_regs(states, starts, ends, ring, window: int,
     ends = _lane_array(ends, dev)
     real = starts if real_starts is None else _lane_array(real_starts, dev)
     regs = torch.zeros((nreg, L), dtype=torch.int32, device=dev)
-    regs[D_STATE] = _to_i32(torch.as_tensor(states).to(dev).long())
+    regs[D_STATE] = _to_i32(_lane_array(states, dev))
     regs[D_LEFT] = (ends - starts).to(torch.int32)
     regs[D_PHASE] = torch.where(starts < ends, P_OUT, P_DONE).to(torch.int32)
     regs[D_XMOD] = (starts % R).to(torch.int32)

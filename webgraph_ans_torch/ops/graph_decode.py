@@ -14,6 +14,7 @@ absolute 64-bit word indices, so a lane may span any part of the stream.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import logging
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from ..bvgraph.random_access import ANSBvGraph
-from ..utils import native
+from ..utils import native, trace
 from . import emit_cuda, emit_post
 from .cuda_build import KernelError
 from .decode_cuda import decode_blocks
@@ -56,16 +57,22 @@ def _grow_cap(run, ok: torch.Tensor, cap: int, bound: int,
     lanes that did not finish, run(idx, cap) -> their ok flags, at twice
     the cap each time, so that the memory of a growing launch follows the
     unfinished lanes. Raises RuntimeError naming the first such lane once
-    the cap has reached `bound`, which no valid lane can exceed."""
-    idx = torch.nonzero(~ok).flatten()
-    while idx.numel():
-        if cap >= bound:
-            raise RuntimeError(
-                f"{what}: lane {int(idx[0])} has not finished at cap {cap}, "
-                f"past the {bound} steps that any lane of this graph can "
-                "need; the artifact is corrupt")
-        cap *= 2
-        idx = idx[~run(idx, cap)]
+    the cap has reached `bound`, which no valid lane can exceed. A
+    `cap.grow` stage; each nonzero and mask counts a host
+    synchronisation."""
+    with trace.stage("cap.grow", what=what, cap=cap) as grow:
+        trace.count("host_syncs")
+        idx = torch.nonzero(~ok).flatten()
+        while idx.numel():
+            if cap >= bound:
+                raise RuntimeError(
+                    f"{what}: lane {int(idx[0])} has not finished at cap "
+                    f"{cap}, past the {bound} steps that any lane of this "
+                    "graph can need; the artifact is corrupt")
+            cap *= 2
+            trace.count("host_syncs")
+            idx = idx[~run(idx, cap)]
+        grow.set(to=cap)
     return cap
 
 
@@ -141,7 +148,7 @@ def safe_nodes(parent: np.ndarray, has_ref: np.ndarray,
 
 def _all_done(ok: torch.Tensor, cap: int, what: str):
     """The check of the full launch at the grown cap."""
-    if not bool(ok.all()):
+    if not bool(trace.fetch(ok.all())):
         raise RuntimeError(f"{what}: lanes that finished alone at cap {cap} "
                            "did not finish in the full launch")
 
@@ -337,19 +344,19 @@ class TorchGraphDecoder:
             return pl
         starts, ends = self._block_bounds(num_lanes, lo, hi, pad_to)
         W, dev = self.window, self.device
-        starts_d = torch.from_numpy(starts).to(dev)
+        starts_d = trace.upload(starts, dev)
         if W > 0 and self.phase_step > 1:
             # sampled artifacts have no per-node phases to seed from: get
             # the pre-nodes' outdegrees from the native skip-decoder
-            ring = torch.from_numpy(self._rings_via_native(starts, W)).to(dev)
+            ring = trace.upload(self._rings_via_native(starts, W), dev)
         elif W > 0:
             # phases of the `window` nodes before each block (clamped to 0;
             # entries before node 0 are masked inside seed_rings)
             pre = starts[:, None].astype(np.int64) - W + np.arange(W)[None, :]
             pre_cl = np.clip(pre, 0, n - 1)
             ring = (seed or functools.partial(seed_rings, self.tables))(
-                torch.from_numpy(self.states_np[pre_cl].astype(np.int64)).to(dev),
-                torch.from_numpy(self.pointers[pre_cl]).to(dev), starts_d, W)
+                trace.upload(self.states_np[pre_cl].astype(np.int64), dev),
+                trace.upload(self.pointers[pre_cl], dev), starts_d, W)
         else:
             ring = torch.zeros((len(starts), 1), dtype=torch.int32, device=dev)
 
@@ -369,9 +376,9 @@ class TorchGraphDecoder:
         est = ((2 * self.num_arcs + 3 * n) * (hi - lo)
                // max(n * len(starts), 1))
         pl = dict(
-            starts=starts_d, ends=torch.from_numpy(ends).to(dev), ring=ring,
-            states=torch.from_numpy(entry_states.astype(np.int64)).to(dev),
-            ptrs=torch.from_numpy(entry_ptrs.astype(np.int64)).to(dev),
+            starts=starts_d, ends=trace.upload(ends, dev), ring=ring,
+            states=trace.upload(entry_states.astype(np.int64), dev),
+            ptrs=trace.upload(entry_ptrs.astype(np.int64), dev),
             starts_np=starts, ends_np=ends,
             cap=round_cap(self.params, max(64, int(est * 1.3))))
         self._plans[key] = pl
@@ -463,7 +470,7 @@ class TorchGraphDecoder:
 
         check(cap)
         out, counts, ok = launch(lanes, cap, emit_aux=emit_aux)
-        if not bool(ok.all()):
+        if not bool(trace.fetch(ok.all())):
             cap = _grow_cap(
                 lambda idx, c: launch(lanes, c, idx, emit_aux=emit_aux)[2],
                 ok, cap, self.step_bound("aux" if emit_aux else "token"),
@@ -483,11 +490,11 @@ class TorchGraphDecoder:
         pl = self.plan(num_lanes)
         _, counts, _ = self.decode_raw(num_lanes, emit_aux=emit_aux)
         if emit_aux:
-            steps = counts.cpu().numpy() + (pl["ends_np"] - pl["starts_np"])
+            steps = trace.fetch(counts) + (pl["ends_np"] - pl["starts_np"])
             tight = round_cap(self.params, int(steps.max()))
             pl["cap_aux"] = min(pl["cap_aux"], tight)
             return pl["cap_aux"]
-        tight = round_cap(self.params, int(counts.max()))
+        tight = round_cap(self.params, int(trace.fetch(counts.max())))
         pl["cap"] = min(pl["cap"], tight)
         return pl["cap"]
 
@@ -596,13 +603,15 @@ class TorchGraphDecoder:
 
         lo = float(work[-1]) / num_lanes
         hi = lo * 8 + float(np.max(degs, initial=0) + halo_el.max()) + 4096
-        for _ in range(40):
-            mid = (lo + hi) / 2
-            if split(mid) is None:
-                lo = mid
-            else:
-                hi = mid
-        bounds = split(hi)
+        with trace.stage("emit.split", lanes=num_lanes,
+                         model="rows" if nw is not None else "elements"):
+            for _ in range(40):
+                mid = (lo + hi) / 2
+                if split(mid) is None:
+                    lo = mid
+                else:
+                    hi = mid
+            bounds = split(hi)
         if self.phase_step > 1:
             # a lane must start at an entry point: a sampled phase
             ent = self._entries()[0]
@@ -639,15 +648,15 @@ class TorchGraphDecoder:
         starts = np.where(rstarts >= ends, rstarts,
                           np.maximum(rstarts - H, 0))
         if W > 0 and self.phase_step > 1:
-            ring = torch.from_numpy(self._rings_via_native(starts, W)).to(dev)
+            ring = trace.upload(self._rings_via_native(starts, W), dev)
         elif W > 0:
             pre = starts[:, None] - W + np.arange(W)[None, :]
             pre_cl = np.clip(pre, 0, n - 1)
             ring = seed_rings(
                 self.tables,
-                torch.from_numpy(self.states_np[pre_cl].astype(np.int64)).to(dev),
-                torch.from_numpy(self.pointers[pre_cl]).to(dev),
-                torch.from_numpy(starts).to(dev), W)
+                trace.upload(self.states_np[pre_cl].astype(np.int64), dev),
+                trace.upload(self.pointers[pre_cl], dev),
+                trace.upload(starts, dev), W)
         else:
             ring = torch.zeros((len(starts), 1), dtype=torch.int32,
                                device=dev)
@@ -683,7 +692,7 @@ class TorchGraphDecoder:
             est = int((self.num_arcs * 1.35 + 3 * n) / max(L, 1) * 2.2) + 64
         regs = emit_init_regs(entry_states.astype(np.int64), starts, ends,
                               ring, W, real_starts=rstarts)
-        pl.update(regs=regs, ptrs=torch.from_numpy(entry_ptrs).to(dev), T=T,
+        pl.update(regs=regs, ptrs=trace.upload(entry_ptrs, dev), T=T,
                   starts_np=rstarts, ends_np=ends, hstarts_np=starts,
                   cap=-(-est // UNROLL) * UNROLL)
         return pl
@@ -694,8 +703,8 @@ class TorchGraphDecoder:
         2048 lanes (plan time only)."""
         out, counts, cap = self.decode_raw(2048, emit_aux=True)
         st = parse_stats(out, self.num_nodes, cap)
-        return (st["parent"].cpu().numpy().astype(np.int64),
-                st["depth"].cpu().numpy() > 0, counts)
+        return (trace.fetch(st["parent"]).astype(np.int64),
+                trace.fetch(st["depth"]) > 0, counts)
 
     def _safe_boundaries(self) -> np.ndarray:
         """safe[x] is True iff no reference chain crosses a lane boundary
@@ -756,14 +765,14 @@ class TorchGraphDecoder:
         val, xch, nib, rows, ok, _ = launch(regs, ptrs, cap, T)
         if not check:
             return val, xch, nib, cap
-        if not bool(ok.all()):
+        if not bool(trace.fetch(ok.all())):
             cap = _grow_cap(
                 lambda idx, c: launch(regs, ptrs, c, T, idx)[4],
                 ok, cap, self.step_bound("emit"), "decode_emit")
             self._check_emit_layout(pl, cap)
             val, xch, nib, rows, ok, _ = launch(regs, ptrs, cap, T)
             _all_done(ok, cap, "decode_emit")
-        rows_np = rows.cpu().numpy()
+        rows_np = trace.fetch(rows)
         pl["rows_np"] = rows_np
         if auto:
             # the true step need: later calls run a tight cap
@@ -784,23 +793,26 @@ class TorchGraphDecoder:
         the JAX package's one fused steady program (_emit_e2e_fused): the
         first steady call runs eagerly, then records the kernel and the
         post-pass (some hundred small launches) into a graph, with one
-        host synchronisation as the capture starts; every later call
-        replays it. A replay overwrites the graph's outputs, so each call
-        returns copies of succs2d and degs (one device copy of
-        [cap, L] + [n] int32); starts_flat is the cached layout itself, as
-        in the eager call."""
+        host synchronisation as the capture starts (a `plan.capture`
+        stage); every later call replays it (a `decode.steady` span). A
+        replay overwrites the graph's outputs, so each call returns copies
+        of succs2d and degs (one device copy of [cap, L] + [n] int32);
+        starts_flat is the cached layout itself, as in the eager call."""
         captured = pl.get("graph")
         if captured is None:
-            out = self._steady(pl)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                static = self._steady(pl)
-            pl["graph"] = (graph, static)
+            with trace.stage("plan.capture", lanes=pl["ptrs"].shape[0]):
+                out = self._steady(pl)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    static = self._steady(pl)
+                pl["graph"] = (graph, static)
+            trace.count("decode_graph_captures")
             return out
         graph, (succs2d, starts_flat, degs) = captured
-        graph.replay()
-        decode_emit.launches += 1      # the replay runs the kernel once
-        return succs2d.clone(), starts_flat, degs.clone()
+        with trace.span("decode.steady"):
+            graph.replay()
+            decode_emit.launches += 1      # the replay runs the kernel once
+            return succs2d.clone(), starts_flat, degs.clone()
 
     def decode_to_adjacency_device(self, num_lanes: int = 2048,
                                    launch=None):
@@ -836,88 +848,127 @@ class TorchGraphDecoder:
         back raises: EmitPlanUnsupported, or the post-pass's
         RuntimeError) and the steady state runs eagerly, not as a CUDA
         graph; plan-time steps (ring seeds, the safe boundaries) run on
-        the decoder's device."""
-        pl0 = self._plans.setdefault(("emit", num_lanes), {})
-        if launch is not None and (pl0.get("emit_broken")
+        the decoder's device.
+
+        A call is a `decode` span, its steady state a `decode.steady`
+        span. The planning calls record one stage each step, always:
+        `plan.first` (the first call's decode on stream-balanced bounds,
+        its cap loop and post-pass), `plan.safe` (the degrees' read-back
+        and the safe boundaries' aux-mode decode), `plan.bounds` (the
+        element-balanced split, its decode and post-pass), `plan.refine`
+        (the observed rows spread over the nodes), `plan.verify` (the
+        split on those rows, the decode that verifies the plan and its
+        post-pass), `plan.capture` (the first steady call and the CUDA
+        graph's capture) and `plan.fallback` (the sort path's first call,
+        with the cause); each split is an `emit.split` stage, each cap
+        regrowth a `cap.grow` stage."""
+        with trace.span("decode", lanes=num_lanes):
+            return self._adjacency_device(num_lanes, launch)
+
+    def _adjacency_device(self, num_lanes: int, launch):
+        pl = self._plans.setdefault(("emit", num_lanes), {})
+        if launch is not None and (pl.get("emit_broken")
                                    or self.window > MAX_WINDOW):
-            raise EmitPlanUnsupported(pl0.get("emit_broken") or
+            raise EmitPlanUnsupported(pl.get("emit_broken") or
                                       f"window {self.window} > {MAX_WINDOW}")
-        if not pl0.get("emit_broken") and self.window > MAX_WINDOW:
-            self._emit_broken(pl0, f"window {self.window} > {MAX_WINDOW}")
-        if pl0.get("emit_broken"):
+        if not pl.get("emit_broken") and self.window > MAX_WINDOW:
+            return self._fall_back(pl, num_lanes,
+                                   f"window {self.window} > {MAX_WINDOW}")
+        if pl.get("emit_broken"):
             return self._adjacency_via_sort_path(num_lanes)
-        mc0 = pl0.get("post_meta") or {}
-        if pl0.get("verified") and "fx_offs" in mc0:
-            if launch is None and pl0["regs"].device.type == "cuda":
-                return self._steady_graph(pl0)
-            return self._steady(pl0, launch)
-        try:
-            val, xch, nib, _ = self.decode_emit_raw(
-                num_lanes, check=not pl0.get("verified"), launch=launch)
-        except EmitPlanUnsupported as e:
-            if launch is not None:
-                raise
-            self._emit_broken(pl0, f"merged-emit kernel unavailable ({e})")
-            return self._adjacency_via_sort_path(num_lanes)
-        pl = self._plans[("emit", num_lanes)]
-        if "lane_of" not in pl:
-            lens = pl["ends_np"] - pl["starts_np"]
-            pl["lane_of"] = np.repeat(np.arange(len(lens), dtype=np.int32),
-                                      lens)
-        try:
-            succs2d, starts_flat, degs, _ = emit_post.postprocess(
-                val, xch, nib, pl["lane_of"], pl["starts_np"],
-                self.num_nodes, meta_cache=pl.setdefault("post_meta", {}))
-        except RuntimeError as e:
-            if _device_fault(e) or launch is not None:
-                raise
-            self._emit_broken(pl0, f"merged-emit post-pass unsupported for "
-                                   f"this artifact ({e})")
-            return self._adjacency_via_sort_path(num_lanes)
+        if pl.get("verified") and "fx_offs" in (pl.get("post_meta") or {}):
+            if launch is None and pl["regs"].device.type == "cuda":
+                return self._steady_graph(pl)
+            with trace.span("decode.steady"):
+                return self._steady(pl, launch)
+        if pl.get("verified"):
+            step = contextlib.nullcontext()
+        elif "degs_np" not in pl:
+            step = trace.stage("plan.first", lanes=num_lanes)
+        elif "node_work" not in pl:
+            step = trace.stage("plan.bounds", lanes=num_lanes)
+        else:
+            step = trace.stage("plan.verify", lanes=num_lanes)
+        with step:
+            out = self._emit_call(pl, num_lanes, launch)
+        if isinstance(out, str):
+            return self._fall_back(pl, num_lanes, out)
+        succs2d, starts_flat, degs = out
         if "degs_np" not in pl and "bounds" not in pl:
             # cache degrees and rebalance the lane split once, onto
             # element-balanced bounds at reference-safe nodes (no chain
             # crosses a boundary: no cross-lane dirty nodes, no halo)
-            pl["degs_np"] = degs.cpu().numpy()
-            try:
-                pl["safe_np"] = self._safe_boundaries()
-            except LayoutTooLarge:
-                raise
-            except (RuntimeError, ValueError) as e:
-                if _device_fault(e):
+            with trace.stage("plan.safe"):
+                pl["degs_np"] = trace.fetch(degs)
+                try:
+                    pl["safe_np"] = self._safe_boundaries()
+                except LayoutTooLarge:
                     raise
-                log.warning("safe-boundary computation failed (%r); "
-                            "falling back to the halo re-decode", e)
-                pl["safe_np"] = None    # correct without it
+                except (RuntimeError, ValueError) as e:
+                    if _device_fault(e):
+                        raise
+                    log.warning("safe-boundary computation failed (%r); "
+                                "falling back to the halo re-decode", e)
+                    pl["safe_np"] = None    # correct without it
             for k in ("regs", "cap", "post_meta", "lane_of"):
                 pl.pop(k, None)
         elif "node_work" not in pl and "rows_np" in pl:
             # one refinement: the split modelled steps as elements +
             # 2*nodes; spread each lane's observed rows over its nodes
             # and re-split on that
-            starts_np, ends_np = pl["starts_np"], pl["ends_np"]
-            degs_np = pl["degs_np"].astype(np.float64)
-            offs = np.concatenate([[0], np.cumsum(degs_np)])
-            nw = degs_np.copy()
-            rows = pl["rows_np"].astype(np.float64)
-            for li in range(len(starts_np)):
-                a, b = int(starts_np[li]), int(ends_np[li])
-                if b > a:
-                    extra = max(rows[li] - (offs[b] - offs[a]), 0.0)
-                    nw[a:b] += extra / (b - a)
-            pl["node_work"] = nw
+            with trace.stage("plan.refine"):
+                starts_np, ends_np = pl["starts_np"], pl["ends_np"]
+                degs_np = pl["degs_np"].astype(np.float64)
+                offs = np.concatenate([[0], np.cumsum(degs_np)])
+                nw = degs_np.copy()
+                rows = pl["rows_np"].astype(np.float64)
+                for li in range(len(starts_np)):
+                    a, b = int(starts_np[li]), int(ends_np[li])
+                    if b > a:
+                        extra = max(rows[li] - (offs[b] - offs[a]), 0.0)
+                        nw[a:b] += extra / (b - a)
+                pl["node_work"] = nw
             for k in ("regs", "cap", "post_meta", "lane_of", "bounds",
                       "rows_np"):
                 pl.pop(k, None)
-            return self.decode_to_adjacency_device(num_lanes, launch)
+            return self._adjacency_device(num_lanes, launch)
         elif not pl.get("verified"):
             pl["verified"] = True
         return succs2d, starts_flat, degs
 
-    @staticmethod
-    def _emit_broken(pl0: dict, cause: str):
+    def _emit_call(self, pl: dict, num_lanes: int, launch):
+        """A planning call's kernel (with its cap loop until the plan is
+        verified) and full post-pass: (succs2d, starts_flat, degs), or the
+        cause (a str) for which the sort path serves the plan."""
+        try:
+            val, xch, nib, _ = self.decode_emit_raw(
+                num_lanes, check=not pl.get("verified"), launch=launch)
+        except EmitPlanUnsupported as e:
+            if launch is not None:
+                raise
+            return f"merged-emit kernel unavailable ({e})"
+        if "lane_of" not in pl:
+            lens = pl["ends_np"] - pl["starts_np"]
+            pl["lane_of"] = np.repeat(np.arange(len(lens), dtype=np.int32),
+                                      lens)
+        try:
+            return emit_post.postprocess(
+                val, xch, nib, pl["lane_of"], pl["starts_np"],
+                self.num_nodes, meta_cache=pl.setdefault("post_meta", {}))[:3]
+        except RuntimeError as e:
+            if _device_fault(e) or launch is not None:
+                raise
+            return (f"merged-emit post-pass unsupported for this artifact "
+                    f"({e})")
+
+    def _fall_back(self, pl: dict, num_lanes: int, cause: str):
+        """Sends the plan to the sort path for good, with a warning that
+        names the cause, and serves this call there (a `plan.fallback`
+        stage)."""
         log.warning("%s; using the sort-path reconstruction", cause)
-        pl0["emit_broken"] = cause
+        pl["emit_broken"] = cause
+        with trace.stage("plan.fallback", cause=cause):
+            return self._adjacency_via_sort_path(num_lanes)
 
     def _adjacency_via_sort_path(self, num_lanes: int):
         """The sort-path reconstruction (decode_to_csr_device) in the

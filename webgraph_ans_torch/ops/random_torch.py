@@ -30,12 +30,11 @@ with device="cpu").
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ..bvgraph.graph import Adjacency
+from ..utils import trace
 from .decode_cuda import decode_blocks
 from .decode_torch import UNROLL, _comp_table, round_cap, seed_rings
 from .emit_cuda import decode_emit
@@ -65,7 +64,7 @@ def _host_queries(query_nodes) -> np.ndarray:
     """Query nodes as a host int64 array: a torch tensor (on any device)
     is copied to the host once, anything else goes through np.asarray."""
     if isinstance(query_nodes, torch.Tensor):
-        return query_nodes.cpu().numpy().astype(np.int64)
+        return trace.fetch(query_nodes).astype(np.int64)
     return np.asarray(query_nodes, dtype=np.int64)
 
 
@@ -74,8 +73,8 @@ def _device_queries(query_nodes, device: torch.device) -> torch.Tensor:
     with no host round trip, a host array is uploaded once."""
     if isinstance(query_nodes, torch.Tensor):
         return query_nodes.to(device=device, dtype=I32)
-    return torch.from_numpy(
-        np.asarray(query_nodes, np.int64).astype(np.int32)).to(device)
+    return trace.upload(np.asarray(query_nodes, np.int64).astype(np.int32),
+                        device)
 
 
 class TorchRandomAccess:
@@ -108,29 +107,38 @@ class TorchRandomAccess:
         W, dev = d.window, d.device
         starts, ends = self._seg_bounds(segs)
         entry_states, entry_ptrs = d._entry_lookup(starts)
-        starts_d = torch.from_numpy(starts.astype(np.int32)).to(dev)
+        starts_d = trace.upload(starts.astype(np.int32), dev)
         if W > 0 and d.phase_step == 1:
             pre = starts[:, None] - W + np.arange(W)[None, :]
             pre_cl = np.clip(pre, 0, d.num_nodes - 1)
             ring = seed_rings(
-                d.tables,
-                torch.from_numpy(d.states_np[pre_cl].astype(np.int64)).to(dev),
-                torch.from_numpy(d.pointers[pre_cl]).to(dev), starts_d, W)
+                d.tables, trace.upload(d.states_np[pre_cl].astype(np.int64),
+                                       dev),
+                trace.upload(d.pointers[pre_cl], dev), starts_d, W)
         elif W > 0:
-            ring = torch.from_numpy(d._rings_via_native(starts, W)).to(dev)
+            ring = trace.upload(d._rings_via_native(starts, W), dev)
         else:
             ring = torch.zeros((len(segs), 1), dtype=I32, device=dev)
-        return (torch.from_numpy(entry_states.astype(np.int64)).to(dev),
-                torch.from_numpy(entry_ptrs).to(dev), starts_d,
-                torch.from_numpy(ends.astype(np.int32)).to(dev), ring)
+        return (trace.upload(entry_states.astype(np.int64), dev),
+                trace.upload(entry_ptrs, dev), starts_d,
+                trace.upload(ends.astype(np.int32), dev), ring)
 
     def _decode_segments(self, segs: np.ndarray, cap: int):
         """Decodes every token of the given entry segments, one lane each;
         lanes that do not finish run again alone at a doubled cap, bounded
         as in decode_raw. Returns host (vals [L, cap] u32, comps [L, cap]
-        u8, counts [L]), rows in `segs` order, and the cap."""
+        u8, counts [L]), rows in `segs` order, and the cap. A
+        `wave.segments` span: `wave.inputs` (the lanes' uploads and ring
+        seeds), then `wave.decode` (the kernel, its cap loop, the
+        read-backs and the tokens' unpacking)."""
+        with trace.span("wave.segments", lanes=len(segs)):
+            with trace.span("wave.inputs"):
+                args = self._segment_inputs(segs)
+            with trace.span("wave.decode"):
+                return self._decode_lanes(args, cap)
+
+    def _decode_lanes(self, args, cap: int):
         d = self.dec
-        args = self._segment_inputs(segs)
 
         def launch(lane_args, c):
             return decode_blocks(d.tables, *lane_args, d.window,
@@ -138,19 +146,19 @@ class TorchRandomAccess:
 
         cap = round_cap(d.params, cap)
         out, counts, ok = launch(args, cap)
-        if not bool(ok.all()):
+        if not bool(trace.fetch(ok.all())):
             cap = _grow_cap(
                 lambda idx, c: launch([a[idx] for a in args], c)[2],
                 ok, cap, d.step_bound("token"), "decode_blocks")
             out, counts, ok = launch(args, cap)
             _all_done(ok, cap, "decode_blocks")
-        out = out.cpu().numpy().view(np.uint32)
+        out = trace.fetch(out).view(np.uint32)
         vals = out[:cap].T
         steps = np.arange(cap)
         comps = ((out[cap:][steps // UNROLL, :]
                   >> ((steps % UNROLL) * 4)[:, None]) & 0xF).astype(
             np.uint8).T
-        return vals, comps, counts.cpu().numpy().astype(np.int64), cap
+        return vals, comps, trace.fetch(counts).astype(np.int64), cap
 
     def _follow(self, frontier: np.ndarray, child: np.ndarray,
                 parent: np.ndarray, need: np.ndarray, seen: np.ndarray):
@@ -177,7 +185,14 @@ class TorchRandomAccess:
         `halo` nodes before each query, where on serial artifacts its
         reference chain lies: one wave then covers chains up to that
         deep. Only the queries' reference closure is reconstructed.
-        query_nodes may be a host array or a torch tensor."""
+        query_nodes may be a host array or a torch tensor. A `wave` span:
+        each wave a `wave.segments` span (the decode) and a `wave.follow`
+        span (the decoded references and the closure), then
+        `wave.reconstruct` (the lists and the query rows)."""
+        with trace.span("wave"):
+            return self._successors(query_nodes, cap, halo)
+
+    def _successors(self, query_nodes, cap: int, halo: int) -> Adjacency:
         query = _host_queries(query_nodes)
         if not len(query):
             return Adjacency(np.zeros(1, np.uint64), np.zeros(0, np.uint32))
@@ -201,28 +216,34 @@ class TorchRandomAccess:
             seen[todo] = True
             vals, comps, counts, wcap = self._decode_segments(todo, cap)
             self.last_waves.append((len(todo), wcap))
-            starts, _ = self._seg_bounds(todo)
-            rowmask = np.arange(vals.shape[1])[None, :] < counts[:, None]
-            fv, fc = vals[rowmask], comps[rowmask]
-            waves.append((todo, fv, fc, counts))
-            # each token's node: segment start + outdegree tokens seen - 1
-            lane = np.repeat(np.arange(len(todo)), counts)
-            is_out = fc == 0
-            local = np.cumsum(is_out) - 1
-            lane_base = np.zeros(len(todo), np.int64)
-            lane_base[1:] = np.cumsum(
-                np.bincount(lane[is_out], minlength=len(todo)))[:-1]
-            node_of = starts[lane] + (local - lane_base[lane])
-            m = (fc == 1) & (fv > 0)
-            child = np.concatenate([child, node_of[m]])
-            parent = np.concatenate(
-                [parent, node_of[m] - fv[m].astype(np.int64)])
-            order = np.argsort(child, kind="stable")
-            child, parent = child[order], parent[order]
-            need, frontier = self._follow(frontier, child, parent, need,
-                                          seen)
-            todo = np.unique(self._seg_of(frontier))
+            with trace.span("wave.follow"):
+                starts, _ = self._seg_bounds(todo)
+                rowmask = np.arange(vals.shape[1])[None, :] < counts[:, None]
+                fv, fc = vals[rowmask], comps[rowmask]
+                waves.append((todo, fv, fc, counts))
+                # each token's node: its segment's start + outdegrees - 1
+                lane = np.repeat(np.arange(len(todo)), counts)
+                is_out = fc == 0
+                local = np.cumsum(is_out) - 1
+                lane_base = np.zeros(len(todo), np.int64)
+                lane_base[1:] = np.cumsum(
+                    np.bincount(lane[is_out], minlength=len(todo)))[:-1]
+                node_of = starts[lane] + (local - lane_base[lane])
+                m = (fc == 1) & (fv > 0)
+                child = np.concatenate([child, node_of[m]])
+                parent = np.concatenate(
+                    [parent, node_of[m] - fv[m].astype(np.int64)])
+                order = np.argsort(child, kind="stable")
+                child, parent = child[order], parent[order]
+                need, frontier = self._follow(frontier, child, parent, need,
+                                              seen)
+                todo = np.unique(self._seg_of(frontier))
+        with trace.span("wave.reconstruct", nodes=len(need)):
+            return self._reconstruct(waves, need, query)
 
+    def _reconstruct(self, waves, need: np.ndarray, query: np.ndarray):
+        """The lists of the closure `need` from the waves' tokens, then
+        the query rows in query order."""
         # every segment's tokens in ascending segment order: the nodes
         # are then strictly ascending, as reconstruct(node_ids=...) needs;
         # then only the tokens of the closure's nodes
@@ -307,16 +328,18 @@ class TorchCsrServer:
             out_cap = _quant(int(q.shape[0]) * 8)
         out, out_off, total = gather_rows(self.offsets, self.succs, q,
                                           out_cap)
-        if int(total) > out_cap:
+        size = int(trace.fetch(total))
+        if size > out_cap:
             out, out_off, total = gather_rows(self.offsets, self.succs, q,
-                                              _quant(int(total)))
+                                              _quant(size))
         return out, out_off, total
 
     def successors_batch(self, queries) -> Adjacency:
         """The lists of queries (a host array or a tensor) on the host."""
         out, out_off, total = self.serve(queries)
-        return Adjacency(out_off.cpu().numpy().astype(np.uint64),
-                         out[:int(total)].cpu().numpy().astype(np.uint32))
+        size = int(trace.fetch(total))
+        return Adjacency(trace.fetch(out_off).astype(np.uint64),
+                         trace.fetch(out[:size]).astype(np.uint32))
 
 
 def _gather_padded(succs2d, starts_flat, degs, qp, out_cap: int):
@@ -475,62 +498,74 @@ class TorchEmitRandomAccess:
             valid, flat[torch.clamp(src, 0, flat.numel() - 1).long()], 0)
         return outv, offs
 
-    def _batch(self, qp_h: np.ndarray, cap: int, T: int, out_cap: int):
-        """One round on the device: (outv, offs, lanes), where lanes =
-        _lanes' outputs, kept for a second extraction. On CUDA the first
-        round of a (lane count, cap, output size) runs eagerly, then
-        records the whole round into a CUDA graph that later rounds
-        replay after copying their queries into its input."""
-        d = self.dec
-        qp = torch.from_numpy(qp_h).to(d.device)
-        if d.device.type != "cuda":
+    def _batch(self, qp, cap: int, T: int, out_cap: int):
+        """One round on the device for the query lanes qp (on the device):
+        (outv, offs, lanes), where lanes = _lanes' outputs, kept for a
+        second extraction. On CUDA the first round of a (lane count, cap,
+        output size) runs eagerly, then records the whole round into a
+        CUDA graph (an `ra.capture` stage) that later rounds replay after
+        copying their queries into its input."""
+        if qp.device.type != "cuda":
             lanes = self._lanes(qp, cap, T)
             return (*self._extract(*lanes[:4], out_cap), lanes)
-        key = (len(qp_h), cap, out_cap)
+        key = (qp.shape[0], cap, out_cap)
         captured = self._graphs.get(key)
         if captured is None:
-            lanes = self._lanes(qp, cap, T)
-            res = (*self._extract(*lanes[:4], out_cap), lanes)
-            static_q = qp.clone()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                lanes_g = self._lanes(static_q, cap, T)
-                out_g = self._extract(*lanes_g[:4], out_cap)
-            self._graphs[key] = (graph, static_q, out_g, lanes_g)
+            with trace.stage("ra.capture", lanes=key[0], cap=cap,
+                             out_cap=out_cap):
+                lanes = self._lanes(qp, cap, T)
+                res = (*self._extract(*lanes[:4], out_cap), lanes)
+                static_q = qp.clone()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    lanes_g = self._lanes(static_q, cap, T)
+                    out_g = self._extract(*lanes_g[:4], out_cap)
+                self._graphs[key] = (graph, static_q, out_g, lanes_g)
+            trace.count("ra_graph_captures")
             return res
         graph, static_q, out_g, lanes_g = captured
         static_q.copy_(qp)
         graph.replay()
         decode_emit.launches += 1      # the replay runs the kernel once
+        trace.count("ra_graph_replays")
         return (*out_g, lanes_g)
 
     def _round(self, q: np.ndarray, cap: int, T: int):
         """The unique queries q as one round of lanes at cap. Returns
         (pool u32, offs [len(q)+1] i64, clean, done) on the host: a clean
-        query's list is pool[offs[i]:offs[i+1]]."""
+        query's list is pool[offs[i]:offs[i+1]]. An `ra.round` span, whose
+        length is the round record's `seconds`: `ra.prep` (the lanes and
+        their upload), `ra.launch` (the round on the device), a `fetch` of
+        the offsets and flags, `ra.extract_again` past the output buffer
+        and a `fetch` of the lists."""
         d = self.dec
-        t0 = time.perf_counter()
         B = len(q)
-        qp = self._padded(q)
-        gpad = len(qp)
-        out_cap = _quant(int(
-            gpad * max(d.num_arcs / max(d.num_nodes, 1), 1.0) * 2) + 1)
-        outv, offs, lanes = self._batch(qp, cap, T, out_cap)
-        small = torch.cat([offs, lanes[3].to(I32), lanes[4].to(I32)])
-        small = small.cpu().numpy()
-        offs_h = small[:B + 1].astype(np.int64)
-        clean = small[gpad + 1:gpad + 1 + B] != 0
-        done = small[2 * gpad + 1:2 * gpad + 1 + B] != 0
-        total = int(offs_h[B])
-        if total > out_cap:
-            # offs is exact past the buffer: extract once more, at size
-            outv, _ = self._extract(*lanes[:4], _quant(total))
-        pool = outv[:total].cpu().numpy().astype(np.uint32)
+        with trace.timed("ra.round", queries=B, cap=cap) as rnd:
+            with trace.span("ra.prep"):
+                qp_h = self._padded(q)
+                gpad = len(qp_h)
+                out_cap = _quant(int(
+                    gpad * max(d.num_arcs / max(d.num_nodes, 1), 1.0) * 2)
+                    + 1)
+                qp = trace.upload(qp_h, d.device)
+            with trace.span("ra.launch", lanes=gpad):
+                outv, offs, lanes = self._batch(qp, cap, T, out_cap)
+            small = trace.fetch(
+                torch.cat([offs, lanes[3].to(I32), lanes[4].to(I32)]))
+            offs_h = small[:B + 1].astype(np.int64)
+            clean = small[gpad + 1:gpad + 1 + B] != 0
+            done = small[2 * gpad + 1:2 * gpad + 1 + B] != 0
+            total = int(offs_h[B])
+            if total > out_cap:
+                # offs is exact past the buffer: extract once more, at size
+                with trace.span("ra.extract_again", total=total):
+                    outv, _ = self._extract(*lanes[:4], _quant(total))
+            pool = trace.fetch(outv[:total]).astype(np.uint32)
         self.last_rounds.append({
             "cap": cap, "T": T, "lanes": gpad, "queries": B,
             "over_cap": int((~done).sum()),
             "dirty": int((done & ~clean).sum()),
-            "seconds": time.perf_counter() - t0})
+            "seconds": rnd.seconds})
         return pool, offs_h, clean, done
 
     FULL_DECODE_LANES = 2048
@@ -567,14 +602,15 @@ class TorchEmitRandomAccess:
         adj = d.decode_to_adjacency_device(self.FULL_DECODE_LANES)
         outv, offs, total = _gather_padded(*adj, qd,
                                            self._full_out_cap(len(q)))
-        if int(total) > outv.shape[0]:
+        size = int(trace.fetch(total))
+        if size > outv.shape[0]:
             # offs is exact past the buffer: gather once more, at size
             # (the reference raises here)
-            outv, offs, _ = _gather_padded(*adj, qd, _quant(int(total)))
+            outv, offs, _ = _gather_padded(*adj, qd, _quant(size))
         self.last_rounds, self.last_unclean = [], 0
         self.last_wave_seconds = 0.0
-        offs_h = offs.cpu().numpy().astype(np.int64)
-        return _ragged_adjacency(outv.cpu().numpy().astype(np.uint32),
+        offs_h = trace.fetch(offs).astype(np.int64)
+        return _ragged_adjacency(trace.fetch(outv).astype(np.uint32),
                                  offs_h[:-1], np.diff(offs_h), inv)
 
     def _full_out_cap(self, B: int) -> int:
@@ -587,13 +623,22 @@ class TorchEmitRandomAccess:
     def successors_batch(self, query_nodes, cap: int = 768) -> Adjacency:
         """The lists of query_nodes (a host array or a torch tensor,
         repeats allowed) in query order, on the host: per-query lanes
-        below the full-decode point, a full merged-emit decode past it."""
+        below the full-decode point, a full merged-emit decode past it.
+        An `ra.batch` span: `ra.unique`, an `ra.round` for each record of
+        last_rounds, `ra.wave` (the wave decode, whose length is
+        last_wave_seconds) and `ra.assemble`."""
+        with trace.span("ra.batch") as batch:
+            return self._successors(query_nodes, cap, batch)
+
+    def _successors(self, query_nodes, cap: int, batch) -> Adjacency:
         d = self.dec
-        query = _host_queries(query_nodes)
+        with trace.span("ra.unique"):
+            query = _host_queries(query_nodes)
+            q, inv = np.unique(query, return_inverse=True)
         if not len(query):
             return Adjacency(np.zeros(1, np.uint64), np.zeros(0, np.uint32))
-        q, inv = np.unique(query, return_inverse=True)
         B = len(q)
+        batch.set(queries=len(query), unique=B)
         if self._full_decode_cheaper(B):
             return self._batch_via_full_decode(q, inv)
         self.last_rounds = []
@@ -630,13 +675,15 @@ class TorchEmitRandomAccess:
         if len(unresolved):
             if self._wave is None:
                 self._wave = TorchRandomAccess(d)
-            t0 = time.perf_counter()
-            wave = self._wave.successors_batch(q[unresolved], halo=self.H)
-            self.last_wave_seconds = time.perf_counter() - t0
+            with trace.timed("ra.wave", queries=len(unresolved)) as wv:
+                wave = self._wave.successors_batch(q[unresolved],
+                                                   halo=self.H)
+            self.last_wave_seconds = wv.seconds
             wave_offs = wave.offsets.astype(np.int64)
             ubase[unresolved] = npool + wave_offs[:-1]
             ulen[unresolved] = np.diff(wave_offs)
             pools.append(wave.succs.astype(np.uint32))
-        pool = (np.concatenate(pools) if pools
-                else np.zeros(0, np.uint32))
-        return _ragged_adjacency(pool, ubase, ulen, inv)
+        with trace.span("ra.assemble"):
+            pool = (np.concatenate(pools) if pools
+                    else np.zeros(0, np.uint32))
+            return _ragged_adjacency(pool, ubase, ulen, inv)

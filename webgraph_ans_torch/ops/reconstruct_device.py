@@ -47,6 +47,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
+
 from .decode_torch import NIB_SUM, P_BLK, P_IS, P_OUT, P_REF, UNROLL
 
 I32 = torch.int32
@@ -489,14 +491,14 @@ def reconstruct_device(out, num_nodes: int, num_arcs: int, cap: int,
         offsets, F, meta_d = parse_and_assemble(
             out, n, cap, *element_space(int(cached[2])),
             _hist_key(cached, max_depth), depth_iters=max(max_depth, 1))
-        if not np.array_equal(meta_d.cpu().numpy(), cached):
+        if not np.array_equal(trace.fetch(meta_d), cached):
             meta_cache.pop("meta", None)
             raise ValueError(
                 "token stream changed under a cached reconstruction meta")
         return offsets, F, E
 
     st = parse_stats(out, n, cap)
-    meta = st["meta"].cpu().numpy()
+    meta = trace.fetch(st["meta"])
     if not bool(meta[0]):
         raise ValueError("token stream inconsistent")
     if meta_cache is not None:

@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
+
 from .decode_torch import resolve_device
 
 
@@ -239,23 +241,24 @@ def reconstruct(values: np.ndarray, comps: np.ndarray, num_nodes: int,
         # ---- device rounds: gather copied values, re-sort all segments.
         # Node ids and successors are < 2^31, so (seg << 32 | succ) orders
         # by segment, then by value. ----
-        seg_t = torch.from_numpy(seg_of_slot.astype(np.int64)).to(device)
+        seg_t = trace.upload(seg_of_slot.astype(np.int64), device)
         seg_key = seg_t << 32
 
         def sort_segments(s):
             return torch.sort(seg_key | s).values & 0xFFFFFFFF
 
-        succs_t = sort_segments(torch.from_numpy(succs).to(device))
+        succs_t = sort_segments(trace.upload(succs, device))
         if E_cop:
-            cop_slot_t = torch.from_numpy(cop_slot).to(device)
-            cop_src_t = torch.from_numpy(cop_src).to(device)
-            cop_depth_t = torch.from_numpy(cop_depth).to(device)
+            cop_slot_t = trace.upload(cop_slot, device)
+            cop_src_t = trace.upload(cop_src, device)
+            cop_depth_t = trace.upload(cop_depth, device)
             for k in range(1, max_depth + 1):
                 take = cop_depth_t == k
+                trace.count("host_syncs", 2)     # two boolean masks
                 succs_t[cop_slot_t[take]] = succs_t[cop_src_t[take]]
                 succs_t = sort_segments(succs_t)
-        return (offsets.astype(np.uint64),
-                succs_t.cpu().numpy().astype(np.uint32))
+        return offsets.astype(np.uint64), trace.fetch(succs_t).astype(
+            np.uint32)
 
     # ---- deep-chain fallback (high-compression mode: max_ref_count is
     # effectively unbounded, so chains can be thousands deep): per round,
