@@ -286,6 +286,106 @@ def test_wave_cap_loop_is_bounded(graphs, monkeypatch):
     assert caps[-1] >= bound
 
 
+SERIAL = ["dummy", "structured", "random", "synth400"]
+
+
+def _serial(graphs, emit_graph, name):
+    """(lists, the wave decoder with the per-node phases that
+    TorchEmitRandomAccess holds on the device, queries) of a serial
+    artifact of the cases above or of emit_graph."""
+    if name == "synth400":
+        adj, g = emit_graph
+        lists, queries = adj.to_lists(), [5, 100, 101, 399, 0, 250, 5]
+    else:
+        lists, g, queries = CASES[name][0], graphs[name], CASES[name][-1]
+    era = TorchEmitRandomAccess(TorchGraphDecoder(TorchGraph(*g),
+                                                  device="cpu"))
+    return lists, TorchRandomAccess(
+        era.dec, phases=(era.states_d, era.ptrs_d, era.ctab)), queries
+
+
+@pytest.mark.parametrize("layout", ["lane-major", "kernel"])
+@pytest.mark.parametrize("lanes,cap", [(0, 16), (3, 8), (115, 576)])
+def test_unpack_tokens_matches_the_nibble_formula(lanes, cap, layout):
+    """The wave's host unpack of decode_blocks' output, lane-major (the
+    replayed wave's read-back) or the kernel's [rows, L] transposed (the
+    eager wave's), against step s's nibble at bits 4 * (s % 8) of row
+    cap + s // 8."""
+    rng = np.random.default_rng(lanes + cap)
+    out_t = rng.integers(0, 1 << 32, (lanes, cap + cap // 8),
+                         dtype=np.uint64).astype(np.uint32)
+    if layout == "kernel":
+        out_t = np.ascontiguousarray(out_t.T).T
+    steps = np.arange(cap)
+    want = ((out_t[:, cap + steps // 8] >> ((steps % 8) * 4)) & 0xF
+            ).astype(np.uint8)
+    vals, comps = random_torch._unpack_tokens(out_t, cap)
+    assert np.array_equal(vals, out_t[:, :cap]) and vals.dtype == np.uint32
+    assert np.array_equal(comps, want) and comps.dtype == np.uint8
+
+
+@pytest.mark.parametrize("name", SERIAL)
+def test_wave_device_inputs_equal_host_inputs(graphs, emit_graph, name):
+    """The wave's lanes gathered on the device from the per-node phases
+    (states, pointers, starts, ends, ring seeds) equal the host-built
+    ones bit for bit: every node's segment, then the padding lanes,
+    empty at start == end == n."""
+    _, ra, _ = _serial(graphs, emit_graph, name)
+    n, G = ra.dec.num_nodes, ra.WAVE_LANES
+    segs = np.arange(n)
+    padded = np.full(G, -1, np.int32)
+    padded[:n] = segs
+    got = ra._device_inputs(torch.from_numpy(padded))
+    starts, ends = ra._seg_bounds(segs)
+    fill = np.full(G - n, n)
+    want = ra._range_inputs(np.concatenate([starts, fill]),
+                            np.concatenate([ends, fill]))
+    for g, w, live in zip(got, want, ra._segment_inputs(segs)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+        assert torch.equal(g[:n], live)
+
+
+@pytest.mark.parametrize("cap", [512, 8])
+@pytest.mark.parametrize("name", SERIAL)
+def test_wave_padded_lanes_match_the_eager_wave(graphs, emit_graph, name,
+                                                cap):
+    """The replayed wave's step, run eagerly here: the padded lanes'
+    decode read back in one packed copy gives the eager wave's tokens,
+    counts and cap; the padding lanes finish with no token. At cap 8 the
+    lanes past the cap finish through the eager cap loop."""
+    _, ra, queries = _serial(graphs, emit_graph, name)
+    segs = np.unique(ra._seg_of(np.maximum(
+        np.asarray(queries)[:, None] - np.arange(29), 0)))
+    got = ra._decode_captured(segs, cap)
+    want = ra._decode_lanes(ra._segment_inputs(segs), cap)
+    assert got[3] == want[3]
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    padded = np.full(ra.WAVE_LANES, -1, np.int32)
+    padded[:len(segs)] = segs
+    _, packed = ra._wave_lanes(torch.from_numpy(padded), got[3])
+    G = ra.WAVE_LANES
+    assert packed[len(segs):G].all()
+    assert not packed[G + len(segs):2 * G].any()
+
+
+@pytest.mark.parametrize("name", SERIAL)
+def test_wave_through_the_replay_path_matches_jax(graphs, emit_graph, name,
+                                                  xla_decoder, monkeypatch):
+    """Every wave of a batch through the replay path's step (forced here;
+    on the CPU it runs eagerly) gives the JAX package's lists without a
+    halo, in several waves, and the input lists with the halo of the
+    merged-emit random access, in one."""
+    lists, ra, queries = _serial(graphs, emit_graph, name)
+    monkeypatch.setattr(ra, "_replays", lambda lanes: True)
+    g = (emit_graph[1] if name == "synth400" else graphs[name])
+    jra = random_tpu.TpuRandomAccess(TpuGraphDecoder(JaxGraph(*g)))
+    got = ra.successors_batch(queries).to_lists()
+    assert got == jra.successors_batch(queries).to_lists()
+    assert got == [lists[q] for q in queries]
+    assert ra.successors_batch(queries, halo=28).to_lists() == got
+
+
 # duplicates (3 three times, 0 and the last node twice) and both ends
 DEVICE_QUERIES = [3, 3, 0, 399, 17, 250, 3, 0, 399, 128]
 SMALL_OUT_CAP = 16

@@ -15,13 +15,15 @@ import numpy as np
 import pytest
 import torch
 
-from webgraph_ans_torch.bvgraph.graph import Adjacency
+from webgraph_ans_torch.bvgraph.graph import Adjacency, load_bvgraph
 from webgraph_ans_torch.bvgraph.random_access import ANSBvGraph
 from webgraph_ans_torch.bvgraph.store import compress_adjacency, store
 from webgraph_ans_torch.bvgraph.synth import synth_web_graph
 from webgraph_ans_torch.ops import cuda_build, decode_cuda, emit_cuda
+from webgraph_ans_torch.ops.decode_torch import round_cap
 from webgraph_ans_torch.ops.graph_decode import TorchGraphDecoder
-from webgraph_ans_torch.ops.random_torch import TorchEmitRandomAccess
+from webgraph_ans_torch.ops.random_torch import (TorchEmitRandomAccess,
+                                                 TorchRandomAccess)
 from webgraph_ans_torch.utils import trace
 
 CPU = torch.profiler.ProfilerActivity.CPU
@@ -264,17 +266,25 @@ def _sync_warnings(fn):
     return out, where, trace.counters().get("host_syncs", 0) - before
 
 
+@pytest.fixture(scope="module")
+def cnr_decoder(tmp_path_factory):
+    """On the card: cnr-2000 stored at the benchmark's parameters, and its
+    decoder."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    base = str(tmp_path_factory.mktemp("cnr") / "cnr")
+    store(CNR, base, 7, 3, 2)
+    return TorchGraphDecoder(ANSBvGraph.load(base))
+
+
 @pytest.mark.cuda
-def test_host_syncs_match_sync_debug_mode(tmp_path):
+def test_host_syncs_match_sync_debug_mode(cnr_decoder):
     """On the card, cnr-2000 at the benchmark's store parameters: each
     call's host_syncs equals the synchronisations that
     set_sync_debug_mode("warn") reports, for the batches and the steady
     decodes (0) after the warm-up; the cold calls are printed."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
-                    "false)")
-    store(CNR, str(tmp_path / "cnr"), 7, 3, 2)
-    dec = TorchGraphDecoder(ANSBvGraph.load(str(tmp_path / "cnr")))
+    dec = cnr_decoder
     ra = TorchEmitRandomAccess(dec)
     rng = np.random.default_rng(2147483659)
     rows = []
@@ -301,3 +311,69 @@ def test_host_syncs_match_sync_debug_mode(tmp_path):
     assert [(r["warned"], r["host_syncs"]) for r in warm] == [
         (r["host_syncs"], r["host_syncs"]) for r in warm]
     assert all(r["host_syncs"] == 0 for r in warm if r["call"] == "decode")
+
+
+@pytest.mark.cuda
+def test_wave_replays_one_cuda_graph(cnr_decoder, monkeypatch):
+    """On the card, cnr-2000: the queries that 4,096-query batches send to
+    the wave decode, through the wave that replays its CUDA graph, give
+    the eager wave's lists and the input lists (the CPU tests hold the
+    same path to the JAX package's lists); each wave after the first
+    replays the graph and counts one decode_blocks launch; a steady
+    wave's decode costs at most 2 host synchronisations, as
+    set_sync_debug_mode("warn") reports them; lanes past a short cap
+    finish through the eager cap loop with the eager wave's tokens."""
+    dec = cnr_decoder
+    lists = load_bvgraph(CNR)[0]
+    ra = TorchEmitRandomAccess(dec)
+    sent, real = [], TorchRandomAccess.successors_batch
+
+    def spy(self, query_nodes, cap=512, halo=0):
+        sent.append(np.asarray(query_nodes))
+        return real(self, query_nodes, cap, halo)
+
+    monkeypatch.setattr(TorchRandomAccess, "successors_batch", spy)
+    rng = np.random.default_rng(2147483693)
+    for _ in range(6):
+        ra.successors_batch(rng.integers(0, dec.num_nodes, 4096))
+    monkeypatch.undo()
+    assert len(sent) >= 3
+    wave = TorchRandomAccess(dec, phases=(ra.states_d, ra.ptrs_d, ra.ctab))
+    eager = TorchRandomAccess(dec)
+    c0 = trace.counters()
+    waves = 0
+    for q in sent:
+        got = wave.successors_batch(q, halo=ra.H)
+        waves += len(wave.last_waves)
+        assert all(lanes <= wave.WAVE_LANES for lanes, _ in wave.last_waves)
+        want = eager.successors_batch(q, halo=ra.H)
+        assert wave.last_waves == eager.last_waves
+        assert np.array_equal(got.offsets, want.offsets)
+        assert np.array_equal(got.succs, want.succs)
+        off = lists.offsets.astype(np.int64)
+        assert got.to_lists() == [lists.succs[off[x]:off[x + 1]].tolist()
+                                  for x in q]
+    c1 = trace.counters()
+    assert c1["ra_graph_captures"] - c0.get("ra_graph_captures", 0) == 1
+    assert c1["ra_wave_replays"] - c0.get("ra_wave_replays", 0) == waves - 1
+
+    uq = np.unique(sent[0])
+    segs = np.unique(wave._seg_of(np.maximum(
+        uq[:, None] - np.arange(ra.H + 1), 0)))
+    launches = decode_cuda.decode_blocks.launches
+    got, where, syncs = _sync_warnings(
+        lambda: wave._decode_segments(segs, 512))
+    print(json.dumps({"wave_lanes": len(segs), "warned": len(where),
+                      "host_syncs": syncs,
+                      "sites": dict(collections.Counter(where))}))
+    assert len(where) == syncs <= 2
+    assert decode_cuda.decode_blocks.launches == launches + 1
+    want = eager._decode_segments(segs, 512)
+    assert got[3] == want[3]
+    assert all(np.array_equal(g, w) for g, w in zip(got[:3], want[:3]))
+
+    for _ in range(2):      # the capture at cap 8, then its replay
+        got = wave._decode_segments(segs, 8)
+        want = eager._decode_segments(segs, 8)
+        assert got[3] == want[3] > round_cap(dec.params, 8)
+        assert all(np.array_equal(g, w) for g, w in zip(got[:3], want[:3]))

@@ -10,7 +10,9 @@ straight from device memory. It is built with `nvcc` for sm_90a into
 `decode_blocks` dispatches on the tensors' device only: CPU tensors go to
 the plain PyTorch version (decode_torch.decode_blocks_plain), CUDA tensors
 to the kernel; anything else raises. `decode_blocks.launches` counts
-token-mode kernel launches, `decode_blocks.aux_launches` aux-mode ones.
+token-mode kernel launches that run, `decode_blocks.aux_launches` aux-mode
+ones: a launch recorded into a CUDA graph capture is not counted, each
+replay of that graph is (random_torch).
 """
 
 from __future__ import annotations
@@ -96,10 +98,11 @@ def _launch(tables: DecoderTables, states, ptrs, starts, ends, ring_seed,
         raise cuda_build.KernelError(
             "decode_blocks kernel launch failed: "
             + lib.wgt_cuda_error_string(err).decode())
-    if emit_aux:
-        decode_blocks.aux_launches += 1
-    else:
-        decode_blocks.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        if emit_aux:
+            decode_blocks.aux_launches += 1
+        else:
+            decode_blocks.launches += 1
     return out, counts, ok
 
 

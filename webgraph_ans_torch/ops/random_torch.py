@@ -10,7 +10,8 @@ webgraph BvGraph recursion). Three batched forms:
   token mode); wave k+1 the segments that the queries' reference chains
   reach and that are not decoded yet. One reconstruction over the
   queries' reference closure follows, then the query rows in query
-  order.
+  order. Given the per-node phases on the card, a wave of one-node
+  segments replays one CUDA graph (lane inputs, ring seeds, the kernel).
 - TorchCsrServer: the whole graph decoded once to a device CSR by the sort
   path (decode_to_csr_device); every batch is then two ragged gathers on
   the device.
@@ -77,6 +78,19 @@ def _device_queries(query_nodes, device: torch.device) -> torch.Tensor:
                         device)
 
 
+def _unpack_tokens(out_t: np.ndarray, cap: int):
+    """(vals [L, cap] u32, comps [L, cap] u8) of decode_blocks' token-mode
+    output, lane-major: out_t [L, cap + cap // UNROLL] u32, each lane's
+    value rows, then its packed component nibbles (step s at bits
+    4 * (s % UNROLL) of nibble row s // UNROLL: byte j of a lane's
+    little-endian rows holds steps 2j and 2j + 1)."""
+    nib = np.ascontiguousarray(out_t[:, cap:], dtype="<u4").view(np.uint8)
+    comps = np.empty((len(out_t), cap), np.uint8)
+    np.bitwise_and(nib, 0xF, out=comps[:, 0::2])
+    np.right_shift(nib, 4, out=comps[:, 1::2])
+    return out_t[:, :cap], comps
+
+
 class TorchRandomAccess:
     """On-demand batch random access: the queried lists are decoded from
     the compressed artifact for each batch. The unit of decode is the
@@ -85,9 +99,19 @@ class TorchRandomAccess:
     query decodes forward from its preceding entry, as the native
     skip-decoder does."""
 
-    def __init__(self, decoder: TorchGraphDecoder):
+    # a wave of at most this many lanes is padded to it with empty lanes,
+    # so that one CUDA graph a cap serves it
+    WAVE_LANES = 512
+
+    def __init__(self, decoder: TorchGraphDecoder, phases=None):
         self.dec = decoder
         self._entry_nodes = decoder._entries()[0]     # ascending, [0] == 0
+        # (entry states int64 [n], entry pointers int64 [n], codec table)
+        # on the decoder's device, at per-node phases: with them a wave of
+        # up to WAVE_LANES one-node segments on CUDA gathers its lanes on
+        # the device and replays one CUDA graph (_decode_captured)
+        self._phases = phases
+        self._graphs: dict = {}
 
     def _seg_of(self, nodes: np.ndarray) -> np.ndarray:
         return np.searchsorted(self._entry_nodes, nodes, side="right") - 1
@@ -103,9 +127,14 @@ class TorchRandomAccess:
         """decode_blocks' lane inputs for the given entry segments, one
         lane each: (states, ptrs, starts, ends, ring seeds) on the
         device."""
+        return self._range_inputs(*self._seg_bounds(segs))
+
+    def _range_inputs(self, starts: np.ndarray, ends: np.ndarray):
+        """decode_blocks' lane inputs for the node ranges [starts, ends)
+        (host int64; every start an entry point, or start == end == n for
+        an empty lane), built on the host and uploaded."""
         d = self.dec
         W, dev = d.window, d.device
-        starts, ends = self._seg_bounds(segs)
         entry_states, entry_ptrs = d._entry_lookup(starts)
         starts_d = trace.upload(starts.astype(np.int32), dev)
         if W > 0 and d.phase_step == 1:
@@ -118,10 +147,39 @@ class TorchRandomAccess:
         elif W > 0:
             ring = trace.upload(d._rings_via_native(starts, W), dev)
         else:
-            ring = torch.zeros((len(segs), 1), dtype=I32, device=dev)
+            ring = torch.zeros((len(starts), 1), dtype=I32, device=dev)
         return (trace.upload(entry_states.astype(np.int64), dev),
                 trace.upload(entry_ptrs, dev), starts_d,
                 trace.upload(ends.astype(np.int32), dev), ring)
+
+    def _device_inputs(self, segs_d: torch.Tensor):
+        """_range_inputs' lane inputs for the one-node segments segs_d
+        [G] int32 (< 0: an empty lane, start == end == n), gathered on
+        the device from the per-node phases: no host copy, so a CUDA
+        graph can record them."""
+        d = self.dec
+        n, W = d.num_nodes, d.window
+        states_d, ptrs_d, ctab = self._phases
+        starts = torch.where(segs_d < 0, n, segs_d)
+        ends = torch.clamp(starts + 1, max=n)
+        live = starts < n
+        at = torch.clamp(starts, max=n - 1).long()
+        pre = (starts.long()[:, None] - W
+               + torch.arange(W, device=segs_d.device))
+        pre_cl = torch.clamp(pre, 0, n - 1)
+        ring = seed_rings(d.tables, states_d[pre_cl], ptrs_d[pre_cl], starts,
+                          W, ctab)
+        return (torch.where(live, states_d[at], 0),
+                torch.where(live, ptrs_d[at], 0), starts, ends, ring)
+
+    def _replays(self, lanes: int) -> bool:
+        """Whether a wave of `lanes` one-node segments replays a CUDA
+        graph: on CUDA, at per-node phases held on the device, with a
+        window, and at most WAVE_LANES lanes."""
+        d = self.dec
+        return (self._phases is not None and d.device.type == "cuda"
+                and d.phase_step == 1 and d.window > 0
+                and lanes <= self.WAVE_LANES)
 
     def _decode_segments(self, segs: np.ndarray, cap: int):
         """Decodes every token of the given entry segments, one lane each;
@@ -129,13 +187,74 @@ class TorchRandomAccess:
         as in decode_raw. Returns host (vals [L, cap] u32, comps [L, cap]
         u8, counts [L]), rows in `segs` order, and the cap. A
         `wave.segments` span: `wave.inputs` (the lanes' uploads and ring
-        seeds), then `wave.decode` (the kernel, its cap loop, the
+        seeds; the segment ids' upload alone where the wave replays a
+        CUDA graph), then `wave.decode` (the kernel, its cap loop, the
         read-backs and the tokens' unpacking)."""
         with trace.span("wave.segments", lanes=len(segs)):
+            if self._replays(len(segs)):
+                return self._decode_captured(segs, cap)
             with trace.span("wave.inputs"):
                 args = self._segment_inputs(segs)
             with trace.span("wave.decode"):
                 return self._decode_lanes(args, cap)
+
+    def _decode_captured(self, segs: np.ndarray, cap: int):
+        """_decode_segments through the wave's CUDA graph: one upload of
+        the segment ids padded to WAVE_LANES, one replay (lane inputs,
+        ring seeds, the kernel) and one read-back of the flags, counts and
+        the live lanes' tokens. Lanes that did not finish at cap take
+        _decode_lanes' cap loop."""
+        L, G = len(segs), self.WAVE_LANES
+        cap = round_cap(self.dec.params, cap)
+        rows = cap + cap // UNROLL
+        with trace.span("wave.inputs"):
+            segs_h = np.full(G, -1, np.int32)
+            segs_h[:L] = segs
+            segs_d = trace.upload(segs_h, self.dec.device)
+        with trace.span("wave.decode"):
+            args, packed = self._wave_graph(segs_d, cap)
+            small = trace.fetch(packed[:2 * G + L * rows])
+            if not small[:L].all():
+                return self._decode_lanes([a[:L] for a in args], cap)
+            out_t = small[2 * G:].reshape(L, rows).view(np.uint32)
+            return (*_unpack_tokens(out_t, cap),
+                    small[G:G + L].astype(np.int64), cap)
+
+    def _wave_lanes(self, segs_d: torch.Tensor, cap: int):
+        """The wave's device step for the padded segment ids segs_d:
+        (the lane inputs, packed int32 [2G + G * rows]: the ok flags, the
+        counts, then each lane's output column, lane after lane)."""
+        d = self.dec
+        args = self._device_inputs(segs_d)
+        out, counts, ok = decode_blocks(d.tables, *args, d.window,
+                                        d.min_interval, cap)
+        return args, torch.cat([ok.to(I32), counts, out.T.reshape(-1)])
+
+    def _wave_graph(self, segs_d: torch.Tensor, cap: int):
+        """_wave_lanes, on CUDA replayed from one CUDA graph a cap: the
+        first wave of a cap runs eagerly, then records the step (an
+        `ra.capture` stage, wave=True); later waves copy their segment ids
+        into its input and replay it."""
+        if segs_d.device.type != "cuda":
+            return self._wave_lanes(segs_d, cap)
+        captured = self._graphs.get(cap)
+        if captured is None:
+            with trace.stage("ra.capture", lanes=segs_d.shape[0], cap=cap,
+                             wave=True):
+                res = self._wave_lanes(segs_d, cap)
+                static = segs_d.clone()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    out_g = self._wave_lanes(static, cap)
+                self._graphs[cap] = (graph, static, out_g)
+            trace.count("ra_graph_captures")
+            return res
+        graph, static, out_g = captured
+        static.copy_(segs_d)
+        graph.replay()
+        decode_blocks.launches += 1    # the replay runs the kernel once
+        trace.count("ra_wave_replays")
+        return out_g
 
     def _decode_lanes(self, args, cap: int):
         d = self.dec
@@ -152,13 +271,8 @@ class TorchRandomAccess:
                 ok, cap, d.step_bound("token"), "decode_blocks")
             out, counts, ok = launch(args, cap)
             _all_done(ok, cap, "decode_blocks")
-        out = trace.fetch(out).view(np.uint32)
-        vals = out[:cap].T
-        steps = np.arange(cap)
-        comps = ((out[cap:][steps // UNROLL, :]
-                  >> ((steps % UNROLL) * 4)[:, None]) & 0xF).astype(
-            np.uint8).T
-        return vals, comps, trace.fetch(counts).astype(np.int64), cap
+        return (*_unpack_tokens(trace.fetch(out).view(np.uint32).T, cap),
+                trace.fetch(counts).astype(np.int64), cap)
 
     def _follow(self, frontier: np.ndarray, child: np.ndarray,
                 parent: np.ndarray, need: np.ndarray, seen: np.ndarray):
@@ -674,7 +788,8 @@ class TorchEmitRandomAccess:
         self.last_wave_seconds = 0.0
         if len(unresolved):
             if self._wave is None:
-                self._wave = TorchRandomAccess(d)
+                self._wave = TorchRandomAccess(
+                    d, phases=(self.states_d, self.ptrs_d, self.ctab))
             with trace.timed("ra.wave", queries=len(unresolved)) as wv:
                 wave = self._wave.successors_batch(q[unresolved],
                                                    halo=self.H)
