@@ -1723,19 +1723,20 @@ def hc_safe_break_phase(adj, runs: PathRuns, smi: str, tmp: str) -> dict:
     host passes), decoded by the merged emit at HC_LANES lanes into the
     verified steady state (the window-16 instance of decode_emit), every
     call list for list; fails if the sort path served (emit_broken) or
-    decode_emit never launched. Prints the 64-pass safe-boundary loop's
-    passes and the nodes it leaves updating beside the converged safe set,
-    and returns decode_emit's time, bound and plain hold on the verified
+    decode_emit never launched. Prints the planner's safe set beside the
+    one the chain roots give (converged_safe_nodes) and the passes those
+    took, fails if the planner marks a node safe that a chain crosses, and
+    returns decode_emit's time, bound and plain hold on the verified
     plan."""
     from webgraph_ans_torch import ANSBvGraph, TorchGraphDecoder, store
-    from webgraph_ans_torch.ops import emit_cuda, graph_decode
+    from webgraph_ans_torch.ops import emit_cuda
 
     base = os.path.join(tmp, "cnr_hc_safe")
     res, store_s = timed(lambda: store(CNR, base, 16, 2_000_000_000, 4,
                                        safe_break_interval=HC_SAFE_BREAK))
     del res
     g = ANSBvGraph.load(base)
-    n, arcs = adj.num_nodes, adj.num_arcs
+    arcs = adj.num_arcs
     sc = Scale(runs, smi, tmp, graph="cnr-2000 hc safe breaks")
     sc.start()
     dec = TorchGraphDecoder(g)
@@ -1744,11 +1745,9 @@ def hc_safe_break_phase(adj, runs: PathRuns, smi: str, tmp: str) -> dict:
     calls, steady, first, pl = emit_to_steady(
         sc, dec, adj, "hc safe-break merged emit", host, lanes=HC_LANES)
     parent, has_ref, counts = dec._reference_parents()
-    _, passes, still = graph_decode.safe_nodes(parent, has_ref)
-    exact, deepest, _ = graph_decode.safe_nodes(parent, has_ref, n)
+    exact, deepest = converged_safe_nodes(parent, has_ref)
     used = pl["safe_np"]
-    safe = {"passes": passes, "still_updating": still,
-            "passes_to_converge": deepest,
+    safe = {"passes_to_converge": deepest,
             "safe_nodes": int(used.sum()),
             "exact_safe_nodes": int(exact.sum()),
             "wrongly_safe": int((used & ~exact).sum()),
@@ -1773,9 +1772,28 @@ def hc_safe_break_phase(adj, runs: PathRuns, smi: str, tmp: str) -> dict:
             emit_broken=pl.get("emit_broken"), safe_boundaries=safe,
             kernel=kernel)
     if safe["wrongly_safe"]:
-        raise SystemExit("hc safe-break: the 64-pass loop marked a node safe "
+        raise SystemExit("hc safe-break: the planner marked a node safe "
                          "that a reference chain crosses")
     return kernel
+
+
+def converged_safe_nodes(parent, has_ref):
+    """(the safe set from each node's chain root, the passes the root
+    loop took): the ancestor minima resolved forward until no node
+    changes, the slow form that graph_decode.safe_nodes replaces."""
+    n = len(parent)
+    am = np.arange(n, dtype=np.int64)
+    passes = 0
+    while True:
+        upd = has_ref & (am[parent] < am)
+        if not upd.any():
+            break
+        am = np.where(upd, am[parent], am)
+        passes += 1
+    sm = np.minimum.accumulate(am[::-1])[::-1]
+    safe = np.ones(n, bool)
+    safe[1:] = sm[1:] >= np.arange(1, n)
+    return safe, passes
 
 
 def ondemand_device(dec, adj, runs: PathRuns, name: str) -> dict:

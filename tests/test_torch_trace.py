@@ -9,6 +9,7 @@ torch.cuda.set_sync_debug_mode on cnr-2000 need the card (marker `cuda`:
 import collections
 import json
 import os
+import sys
 import warnings
 
 import numpy as np
@@ -26,11 +27,22 @@ from webgraph_ans_torch.ops.random_torch import (TorchEmitRandomAccess,
                                                  TorchRandomAccess)
 from webgraph_ans_torch.utils import trace
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+from benchmark.reference import lists as ref_lists  # noqa: E402
+from benchmark.reference import synth_plain  # noqa: E402
+
 CPU = torch.profiler.ProfilerActivity.CPU
 PLAN = ["plan.bounds", "plan.first", "plan.refine", "plan.safe",
         "plan.verify"]
 LANES = 16
 CNR = os.path.join(os.path.dirname(__file__), "data", "cnr-2000", "cnr-2000")
+# the benchmark's high-compression deployment (cnr2000hc): its store
+# parameters, window 16, unbounded chains, safe breaks every 128 nodes
+with open(os.path.join(ROOT, "benchmark", "configs", "cnr2000hc.json")) as f:
+    HC = json.load(f)
+HC_LANES = 8
 
 
 def _last_id():
@@ -54,6 +66,31 @@ def steady_decoder():
     while not dec._plans.get(("emit", LANES), {}).get("verified"):
         dec.decode_to_adjacency_device(LANES)
     return adj, dec, _since(mark, trace.stages())
+
+
+@pytest.fixture(scope="module")
+def hc_decoder():
+    """The benchmark's plain side's seeded 1,000-node synthetic graph,
+    stored at the high-compression configuration's parameters and decoded
+    at HC_LANES lanes through the plan into the steady state with the
+    profiler off: (the decoder, the lists each call got wrong against the
+    plain side's, the stages its calls recorded)."""
+    offsets, succs = synth_plain.synth_web_graph(1000, seed=1)
+    res = compress_adjacency(Adjacency(offsets.astype(np.uint64),
+                                       succs.astype(np.uint32)),
+                             **HC["store"])
+    dec = TorchGraphDecoder(ANSBvGraph(res.prelude, res.states,
+                                       res.pointers), device="cpu")
+    mark = _last_id()
+    ro, rs = torch.from_numpy(offsets), torch.from_numpy(succs)
+    nodes = torch.arange(len(offsets) - 1)
+    wrong = []
+    # the first call, the split and its verification, a steady call
+    for _ in range(3):
+        s2d, starts, degs = dec.decode_to_adjacency_device(HC_LANES)
+        wrong.append(ref_lists.count_wrong(ro, rs, nodes, starts, degs,
+                                           s2d.shape[1], s2d))
+    return dec, wrong, _since(mark, trace.stages())
 
 
 @pytest.fixture(scope="module")
@@ -145,6 +182,46 @@ def test_cold_decode_records_each_plan_stage_once(steady_decoder):
     # a planning call reads back what it plans from; the steady state
     # reads nothing back
     assert all(s.syncs > 0 for s in top if s.name != "plan.refine")
+
+
+def test_hc_store_decodes_to_the_plain_lists(hc_decoder):
+    """At window 16 with unbounded chains and safe breaks, every call's
+    lists are the plain side's, through the plan into the steady state,
+    on the merged emit: no call fell back to the sort path."""
+    dec, wrong, stages = hc_decoder
+    assert wrong == [0, 0, 0]
+    pl = dec._plans[("emit", HC_LANES)]
+    assert pl.get("verified") and not pl.get("emit_broken")
+    assert "fx_offs" in pl["post_meta"] and pl["safe_np"] is not None
+    assert not [s for s in stages if s.name == "plan.fallback"]
+
+
+@pytest.mark.parametrize("case", ["standard", "hc"])
+def test_verify_stage_records_the_steady_layout(case, request):
+    """plan.verify keeps the layout it verified: the fixup's rounds and
+    dirty nodes from the post-pass's cache, the empty lanes and all lanes
+    from the plan; plan.safe keeps its safe nodes. The high-compression
+    graph's steady state has dirty chains to fix up."""
+    if case == "hc":
+        dec, _, stages = request.getfixturevalue("hc_decoder")
+        lanes = HC_LANES
+    else:
+        _, dec, stages = request.getfixturevalue("steady_decoder")
+        lanes = LANES
+    pl = dec._plans[("emit", lanes)]
+    (verify,) = [s for s in stages if s.name == "plan.verify"]
+    (safe,) = [s for s in stages if s.name == "plan.safe"]
+    mc = pl["post_meta"]
+    assert verify.attrs == {
+        "lanes": len(pl["starts_np"]), "fixup_rounds": mc["rounds"],
+        "dirty_nodes": len(mc["order_np"]),
+        "empty_lanes": int((pl["starts_np"] >= pl["ends_np"]).sum())}
+    assert verify.attrs["lanes"] == pl["regs"].shape[1] == lanes
+    assert 0 <= verify.attrs["empty_lanes"] < verify.attrs["lanes"]
+    assert safe.attrs == {"safe_nodes": int(pl["safe_np"].sum())}
+    if case == "hc":
+        assert 1 <= verify.attrs["fixup_rounds"] <= verify.attrs[
+            "dirty_nodes"]
 
 
 def test_steady_decode_under_a_profiler_syncs_nothing(steady_decoder):
@@ -377,3 +454,42 @@ def test_wave_replays_one_cuda_graph(cnr_decoder, monkeypatch):
         want = eager._decode_segments(segs, 8)
         assert got[3] == want[3] > round_cap(dec.params, 8)
         assert all(np.array_equal(g, w) for g, w in zip(got[:3], want[:3]))
+
+
+@pytest.mark.cuda
+def test_hc_steady_decode_makes_no_host_sync(tmp_path):
+    """On the card, cnr-2000 at the high-compression configuration's store
+    parameters and lanes: once the plan is verified and its CUDA graph
+    captured, a steady decode under set_sync_debug_mode("error") raises
+    nothing, runs decode_emit once and gives the BV file's lists; the
+    plan's stages are printed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    base = str(tmp_path / "cnr_hc")
+    store(CNR, base, **HC["store"])
+    dec = TorchGraphDecoder(ANSBvGraph.load(base))
+    lanes = HC["decode_lanes"]
+    mark = _last_id()
+    for _ in range(3):  # first call, split and verification, capture
+        dec.decode_to_adjacency_device(lanes)
+    pl = dec._plans[("emit", lanes)]
+    assert pl.get("graph") is not None and not pl.get("emit_broken")
+    for st in _since(mark, trace.stages()):
+        print(json.dumps({"stage": st.name, "seconds": st.seconds,
+                          **st.attrs}))
+    launches = emit_cuda.decode_emit.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s2d, starts, degs = dec.decode_to_adjacency_device(lanes)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert emit_cuda.decode_emit.launches == launches + 1
+    adj = load_bvgraph(CNR)[0]
+    ro = torch.from_numpy(adj.offsets.astype(np.int64)).cuda()
+    rs = torch.from_numpy(adj.succs.astype(np.int64)).cuda()
+    nodes = torch.arange(adj.num_nodes, device="cuda")
+    assert ref_lists.count_wrong(ro, rs, nodes, starts, degs, s2d.shape[1],
+                                 s2d) == 0

@@ -118,32 +118,18 @@ def emit_split(cost: np.ndarray, halo: np.ndarray, safe, num_lanes: int,
     return bounds if fits else None
 
 
-SAFE_PASSES = 64
-
-
-def safe_nodes(parent: np.ndarray, has_ref: np.ndarray,
-               passes: int = SAFE_PASSES):
-    """safe[x] is True iff the suffix minimum of the nodes' ancestor
-    minima from x on is >= x: no reference chain crosses a lane boundary
-    placed at x. The ancestor minimum resolves forward (parents precede
-    children) for at most `passes` passes, as the reference's loop does;
-    a chain deeper than that leaves some minima unresolved. Returns
-    (safe, the passes that updated a node, the nodes another pass would
-    still update: 0 once the loop has converged)."""
+def safe_nodes(parent: np.ndarray, has_ref: np.ndarray) -> np.ndarray:
+    """safe[x] is True iff no reference chain crosses a lane boundary
+    placed at x. A chain that crosses x has an edge from a node y >= x to
+    its parent below x (parents precede children), so safe[x] is: no
+    node y >= x with a reference has parent[y] < x, a suffix minimum of
+    where(has_ref, parent, y), exact at any chain depth."""
     n = len(parent)
-    am = np.arange(n, dtype=np.int64)
-    ran = 0
-    for _ in range(passes):
-        upd = has_ref & (am[parent] < am)
-        if not upd.any():
-            break
-        am = np.where(upd, am[parent], am)
-        ran += 1
-    still = int((has_ref & (am[parent] < am)).sum()) if ran == passes else 0
-    sm = np.minimum.accumulate(am[::-1])[::-1]
+    link = np.where(has_ref, parent, np.arange(n, dtype=np.int64))
+    sm = np.minimum.accumulate(link[::-1])[::-1]
     safe = np.ones(n, bool)
     safe[1:] = sm[1:] >= np.arange(1, n)
-    return safe, ran, still
+    return safe
 
 
 def _all_done(ok: torch.Tensor, cap: int, what: str):
@@ -708,10 +694,9 @@ class TorchGraphDecoder:
 
     def _safe_boundaries(self) -> np.ndarray:
         """safe[x] is True iff no reference chain crosses a lane boundary
-        placed at x (safe_nodes over _reference_parents, SAFE_PASSES
-        passes)."""
+        placed at x (safe_nodes over _reference_parents)."""
         parent, has_ref, _ = self._reference_parents()
-        return safe_nodes(parent, has_ref)[0]
+        return safe_nodes(parent, has_ref)
 
     def _emit_servable(self, T: int) -> bool:
         """Whether the merged-emit kernel can run a plan with a T-row ring
@@ -861,7 +846,12 @@ class TorchGraphDecoder:
         post-pass), `plan.capture` (the first steady call and the CUDA
         graph's capture) and `plan.fallback` (the sort path's first call,
         with the cause); each split is an `emit.split` stage, each cap
-        regrowth a `cap.grow` stage."""
+        regrowth a `cap.grow` stage. `plan.safe` keeps the count of safe
+        nodes (`safe_nodes`); `plan.verify` keeps the steady layout it
+        verified: the fixup's rounds (the dirty-chain depth,
+        `fixup_rounds`), the dirty nodes the fixup resolves each call
+        (`dirty_nodes`), the empty lanes (`empty_lanes`) and all lanes
+        (`lanes`)."""
         with trace.span("decode", lanes=num_lanes):
             return self._adjacency_device(num_lanes, launch)
 
@@ -898,10 +888,11 @@ class TorchGraphDecoder:
             # cache degrees and rebalance the lane split once, onto
             # element-balanced bounds at reference-safe nodes (no chain
             # crosses a boundary: no cross-lane dirty nodes, no halo)
-            with trace.stage("plan.safe"):
+            with trace.stage("plan.safe") as stage:
                 pl["degs_np"] = trace.fetch(degs)
                 try:
                     pl["safe_np"] = self._safe_boundaries()
+                    stage.set(safe_nodes=int(pl["safe_np"].sum()))
                 except LayoutTooLarge:
                     raise
                 except (RuntimeError, ValueError) as e:
@@ -934,6 +925,12 @@ class TorchGraphDecoder:
             return self._adjacency_device(num_lanes, launch)
         elif not pl.get("verified"):
             pl["verified"] = True
+            # the steady layout this plan keeps, on its plan.verify stage
+            mc = pl["post_meta"]
+            step.set(fixup_rounds=int(mc["rounds"]),
+                     dirty_nodes=len(mc["order_np"]),
+                     empty_lanes=int((pl["starts_np"] >= pl["ends_np"]).sum()),
+                     lanes=len(pl["starts_np"]))
         return succs2d, starts_flat, degs
 
     def _emit_call(self, pl: dict, num_lanes: int, launch):
