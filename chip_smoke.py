@@ -18,7 +18,9 @@ reconstruct), the merged-emit path
 (TorchGraphDecoder.decode_to_adjacency_device at 2048 lanes, through
 rebalance and refinement into the verified steady state, which replays
 one CUDA graph, checked through to_dense_csr; the steady call also
-without the graph, and at 4096 lanes), and block-parallel compression
+without the graph, and at 4096 lanes; its steady fixup kernel,
+emit_fixup, held bit for bit against its plain version and the CPU
+path's rounds, and timed beside both), and block-parallel compression
 (store with 512 encode blocks and the device model search, its artifact
 decoded back through both device paths and the sequential reader). Then
 the paths built on the same kernels: the sort-path reconstruction
@@ -28,7 +30,8 @@ reference chains: the deep rounds), the fallbacks of
 decode_to_adjacency_device onto it (a window past 16, a post-pass error),
 the JAX bench's high-compression mode (window 16 with a reference root
 every 128 nodes) through the merged emit's window-16 kernel at 1024 lanes
-into its steady state (failing if the sort path served), and batch
+into its steady state (failing if the sort path served; its fixup kernel
+held and timed as on the window-7 plan), and batch
 random access on cnr-2000 (wave decode, the device CSR server,
 per-query merged-emit lanes, with their reruns at larger caps, and the
 full-decode route), the device-resident serving contract
@@ -564,15 +567,17 @@ def codes_hit(nib: torch.Tensor) -> dict:
 
 def launch_counts(reset: bool = False) -> dict:
     """The kernels' launch counts; reset sets them to 0 first."""
-    from webgraph_ans_torch.ops import decode_cuda, emit_cuda, encode_cuda
+    from webgraph_ans_torch.ops import (decode_cuda, emit_cuda, encode_cuda,
+                                        fixup_cuda)
     blocks, emit_k = decode_cuda.decode_blocks, emit_cuda.decode_emit
-    enc = encode_cuda.encode_blocks
+    enc, fix = encode_cuda.encode_blocks, fixup_cuda.emit_fixup
     if reset:
         blocks.launches = blocks.aux_launches = emit_k.launches = 0
-        enc.launches = 0
+        enc.launches = fix.launches = 0
     return {"decode_blocks": blocks.launches,
             "decode_blocks_aux": blocks.aux_launches,
-            "decode_emit": emit_k.launches, "encode_blocks": enc.launches}
+            "decode_emit": emit_k.launches, "encode_blocks": enc.launches,
+            "emit_fixup": fix.launches}
 
 
 class PathRuns:
@@ -1452,9 +1457,14 @@ def emit_to_steady(sc: Scale, dec, adj, name: str, host: dict,
             del fargs
         if pl.get("verified") and "fx_offs" in mc:
             break
+    # a layout with dirty nodes runs the fixup kernel once a steady call
+    fixups = ["emit_fixup"] if pl["post_meta"]["fx_nodes"].shape[0] else []
     results, counts = sc.runs(f"{name} steady", lambda: [timed(
         lambda: dec.decode_to_adjacency_device(lanes))
-        for _ in range(5)], ["decode_emit"])
+        for _ in range(5)], ["decode_emit", *fixups])
+    if fixups and counts["emit_fixup"] != len(results):
+        raise SystemExit(f"{name}: {counts['emit_fixup']} fixup launches in "
+                         f"{len(results)} steady calls")
     steady_exact = all(adjacency_exact(r, adj) for r, _ in results)
     steady_s = statistics.median(t for _, t in results)
     del results
@@ -1717,6 +1727,70 @@ def scale_random_access(sc: Scale, adj, gs, edec, tokens: int):
     ondemand_phase(sc, gs, adj, srv, tokens)
 
 
+def fixup_hold(dec, pl) -> dict:
+    """The steady fixup of a verified merged-emit plan on the card: the
+    emit_fixup kernel on a mark_deg decode's val channel, held bit for bit
+    against its plain version (node by node) and against the rounds of the
+    JAX package's post_steady (emit_post._fixup_steady, over the per-slot
+    arrays that build_fixup_cache makes with `rounds`, from a decode at the
+    verifying call's cap, before the plan's was tightened). Both versions
+    patch val in place, so each call gets a fresh copy of it. Times the
+    kernel's wrapper (zeroed flags and the launch, on fresh copies), the
+    rounds eager and the rounds replayed as one CUDA graph (CUDA events,
+    median of TIMED_RUNS), beside the bound of the bytes the fixup needs:
+    the node table, each element's source, its gathered value and its
+    write, each read or written once (bound_ms). `hold_launches` counts
+    the hold's own calls of the kernel, none of the main path."""
+    from webgraph_ans_torch.ops import emit_cuda, emit_post, fixup_cuda
+
+    mc = pl["post_meta"]
+    nodes, srcs = mc["fx_nodes"], mc["fx_srcs"]
+    eargs = emit_args(dec, pl, pl["cap"])
+    val = emit_cuda.decode_emit(*eargs, T=pl["T"], mark_deg=True)[0]
+    G = val.shape[1]
+    first = emit_cuda.decode_emit(*emit_args(dec, pl, mc["SG"] // G),
+                                  T=pl["T"])
+    rc = {k: v for k, v in mc.items() if not k.startswith("fx_")}
+    emit_post.build_fixup_cache(
+        rc, emit_post.fixup_provider(first[0], first[2]), val.device,
+        rounds=True)
+    del first
+
+    def rounds():
+        return emit_post._fixup_steady(val, rc)
+
+    def fresh(k):
+        copies = iter([val.clone() for _ in range(k)])
+        return lambda: fixup_cuda.emit_fixup(next(copies), nodes, srcs)
+
+    launches = fixup_cuda.emit_fixup.launches
+    kernel = fixup_cuda.emit_fixup(val.clone(), nodes, srcs)
+    plain, plain_s = timed(lambda: fixup_cuda.emit_fixup_plain(
+        val.clone(), nodes, srcs))
+    held = compare([kernel], [plain])
+    by_rounds = compare([kernel], [rounds()])
+    t_kernel = cuda_ms(fresh(TIMED_RUNS + 3))
+    t_rounds = cuda_ms(rounds)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rounds()
+    t_graph = cuda_ms(graph.replay)
+    del graph
+    nd, E = nodes.shape[0], srcs.shape[0]
+    degs = nodes[:, 1].cpu().numpy()
+    need = nodes.numel() * 4 + E * 12
+    return {"rounds": mc["rounds"], "dirty_nodes": nd, "elements": E,
+            "parent_reads": int((srcs < 0).sum()),
+            "deg_median": float(np.median(degs)), "deg_max": int(degs.max()),
+            "slots": rc["Dall"],
+            "max_lpad": max(lp for _, lp, _ in rc["fx_offs"]),
+            "hold_launches": fixup_cuda.emit_fixup.launches - launches,
+            "ms": t_kernel, "rounds_eager_ms": t_rounds,
+            "rounds_graph_ms": t_graph, "plain_ms": plain_s * 1e3,
+            "bytes": need, "bound_ms": need / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "plain": held, "rounds_hold": by_rounds}
+
+
 def hc_safe_break_phase(adj, runs: PathRuns, smi: str, tmp: str) -> dict:
     """Phase 17b: cnr-2000 stored in the JAX bench's high-compression mode
     with safe breaks (store(..., 16, 2e9, 4, safe_break_interval=128),
@@ -1774,6 +1848,13 @@ def hc_safe_break_phase(adj, runs: PathRuns, smi: str, tmp: str) -> dict:
     if safe["wrongly_safe"]:
         raise SystemExit("hc safe-break: the planner marked a node safe "
                          "that a reference chain crosses")
+    fixup = fixup_hold(dec, pl)
+    sc.emit("hc_fixup_vs_plain", dec=dec, lanes=HC_LANES, **fixup)
+    if not (fixup["plain"]["bit_equal"] and fixup["rounds_hold"]["bit_equal"]
+            and fixup["hold_launches"] > 0):
+        raise SystemExit("hc safe-break: the fixup kernel differs from its "
+                         "plain version or the rounds")
+    kernel["fixup"] = fixup
     return kernel
 
 
@@ -1976,7 +2057,7 @@ def main() -> int:
                                                   dump_tokens)
     from webgraph_ans_torch.bvgraph.synth import synth_web_graph
     from webgraph_ans_torch.ops import (cuda_build, decode_cuda, emit_cuda,
-                                        encode_cuda, emit_post)
+                                        encode_cuda, emit_post, fixup_cuda)
     from webgraph_ans_torch.ops.encode_torch import (encode_blocks_plain,
                                                      encode_plan)
     from webgraph_ans_torch.ops.decode_torch import (decode_blocks_plain,
@@ -1990,14 +2071,16 @@ def main() -> int:
     emit("device", name=kind, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, count=torch.cuda.device_count())
 
-    # ---- 1. build the three kernels from the checkout's sources, at once
+    # ---- 1. build the four kernels from the checkout's sources, at once
     t0 = time.perf_counter()
     built = cuda_build.build_many(
         [(decode_cuda.SOURCE, decode_cuda.LIB_PATH),
          (emit_cuda.SOURCE, emit_cuda.LIB_PATH),
-         (encode_cuda.SOURCE, encode_cuda.LIB_PATH)], force=True)
+         (encode_cuda.SOURCE, encode_cuda.LIB_PATH),
+         (fixup_cuda.SOURCE, fixup_cuda.LIB_PATH)], force=True)
     reports = {name: ptxas_report(info["log"]) for name, info in
-               zip(("decode_blocks", "decode_emit", "encode_blocks"), built)}
+               zip(("decode_blocks", "decode_emit", "encode_blocks",
+                    "emit_fixup"), built)}
     emit("build", seconds=time.perf_counter() - t0, kernels=[
         {"kernel": name, "seconds": info["seconds"], "ptxas": reports[name]}
         for name, info in zip(reports, built)])
@@ -2205,6 +2288,7 @@ def main() -> int:
         decode_cuda.decode_blocks.launches = 0
         decode_cuda.decode_blocks.aux_launches = 0
         emit_cuda.decode_emit.launches = 0
+        fixup_cuda.emit_fixup.launches = 0
         cold = []
         epl = {}
         for _ in range(4):
@@ -2219,10 +2303,12 @@ def main() -> int:
         cold_launches = {
             "decode_emit": emit_cuda.decode_emit.launches,
             "decode_blocks_aux": decode_cuda.decode_blocks.aux_launches,
-            "decode_blocks": decode_cuda.decode_blocks.launches}
+            "decode_blocks": decode_cuda.decode_blocks.launches,
+            "emit_fixup": fixup_cuda.emit_fixup.launches}
         decode_cuda.decode_blocks.launches = 0
         decode_cuda.decode_blocks.aux_launches = 0
         emit_cuda.decode_emit.launches = 0
+        fixup_cuda.emit_fixup.launches = 0
         # the first steady call runs eagerly and captures the CUDA graph,
         # the later ones replay it; every result is checked once all five
         # calls have run, so a replay must not overwrite an earlier result
@@ -2237,7 +2323,8 @@ def main() -> int:
         steady_launches = {
             "decode_emit": emit_cuda.decode_emit.launches,
             "decode_blocks_aux": decode_cuda.decode_blocks.aux_launches,
-            "decode_blocks": decode_cuda.decode_blocks.launches}
+            "decode_blocks": decode_cuda.decode_blocks.launches,
+            "emit_fixup": fixup_cuda.emit_fixup.launches}
         mc = epl["post_meta"]
         path_launches = {k: cold_launches[k] + steady_launches[k]
                          for k in cold_launches}
@@ -2251,8 +2338,12 @@ def main() -> int:
             [timed(lambda: edec._steady(epl))[1] for _ in range(5)])
         eargs = emit_args(edec, epl, epl["cap"])
         ek = emit_cuda.decode_emit(*eargs, T=epl["T"], mark_deg=True)
+        # the post-pass patches val in place: each call gets a fresh copy
+        posts = iter([ek[0].clone() for _ in range(13)])
         t_post = cuda_ms(lambda: emit_post.post_steady(
-            ek[0], ek[1], *(mc[k] for k in emit_post.STEADY_KEYS)), runs=10)
+            next(posts), ek[1], *(mc[k] for k in emit_post.STEADY_KEYS)),
+            runs=10)
+        del posts
         steady_s = statistics.median(steady)
         emit("emit_e2e", graph="cnr-2000", lanes=len(epl["starts_np"]),
              T=epl["T"], cap=epl["cap"],
@@ -2272,6 +2363,8 @@ def main() -> int:
         if (path_launches["decode_emit"] < 1
                 or path_launches["decode_blocks_aux"] < 1
                 or steady_launches["decode_emit"] != len(steady)
+                or steady_launches["emit_fixup"] != len(steady)
+                or cold_launches["emit_fixup"]
                 or steady_launches["decode_blocks_aux"]
                 or steady_launches["decode_blocks"]):
             raise SystemExit(f"merged emit: unexpected launches "
@@ -2306,6 +2399,16 @@ def main() -> int:
             raise SystemExit(f"merged emit at {WIDE_EMIT_LANES} lanes: not "
                              "exact, or the plan never verified")
         del edec4, steady4
+
+        # ---- 9b. the steady fixup kernel vs its plain version and the
+        # rounds, on the verified cnr-2000 plan ----
+        fix_w7 = fixup_hold(edec, epl)
+        emit("fixup_vs_plain", graph="cnr-2000", lanes=EMIT_LANES, **fix_w7)
+        if not (fix_w7["plain"]["bit_equal"]
+                and fix_w7["rounds_hold"]["bit_equal"]
+                and fix_w7["hold_launches"] > 0):
+            raise SystemExit("cnr-2000: the fixup kernel differs from its "
+                             "plain version or the rounds")
 
         # ---- 10. merged-emit kernel vs plain on the verified cnr-2000
         # plan (the steady state's mark_deg mode), and its time ----
@@ -2564,6 +2667,23 @@ def main() -> int:
         "bound_by": enc_bound["bound_by"], "library_ms": None,
         "lanes": cplan.tstart.shape[0], **enc_geometry,
         "scale": scale["encode_blocks"],
+    }, {
+        "name": "emit_fixup", "route": "cuda",
+        "source": "webgraph_ans_torch/csrc/emit_fixup.cu",
+        "replaces": None,
+        "launches": path_launches["emit_fixup"] + runs.total["emit_fixup"],
+        "bit_equal": (fix_w7["plain"]["bit_equal"]
+                      and hc_kernel["fixup"]["plain"]["bit_equal"]),
+        "max_abs_err": max(fix_w7["plain"]["max_abs_err"],
+                           hc_kernel["fixup"]["plain"]["max_abs_err"]),
+        "ms": fix_w7["ms"]["median"], "plain_ms": fix_w7["plain_ms"],
+        "bound_ms": fix_w7["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "lanes": EMIT_LANES,
+        "rounds_eager_ms": fix_w7["rounds_eager_ms"]["median"],
+        "rounds_graph_ms": fix_w7["rounds_graph_ms"]["median"],
+        "hc_safe_break_w16": {k: hc_kernel["fixup"][k] for k in (
+            "rounds", "dirty_nodes", "ms", "bound_ms", "rounds_eager_ms",
+            "rounds_graph_ms")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

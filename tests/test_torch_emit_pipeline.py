@@ -372,7 +372,9 @@ def _assert_lists(adj, s2d, st, dg):
 
 
 class _NoHostSync:
-    """Makes every tensor-to-host read raise while active."""
+    """Makes every tensor-to-host read raise while active, except inside
+    the functions `lifted` wraps: the kernels' plain versions, which the
+    CPU runs in the kernels' place."""
 
     NAMES = ("item", "tolist", "numpy", "cpu", "__bool__", "__int__",
              "__float__")
@@ -391,13 +393,38 @@ class _NoHostSync:
         for k, v in self.saved.items():
             setattr(torch.Tensor, k, v)
 
+    def lifted(self, fn, calls: list, note):
+        """fn with the guard lifted while it runs; each call first appends
+        note(*args, **kw) to calls."""
+        def run(*args, **kw):
+            calls.append(note(*args, **kw))
+            self.__exit__()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.__enter__()
+        return run
+
+
+def _spy_kernels(monkeypatch, guard):
+    """decode_emit and the steady fixup, each run with the guard lifted:
+    (the mark_deg of each decode_emit call, the val device of each fixup
+    call)."""
+    calls, fixups = [], []
+    monkeypatch.setattr(graph_decode, "decode_emit", guard.lifted(
+        graph_decode.decode_emit, calls, lambda *a, **kw: kw.get("mark_deg")))
+    monkeypatch.setattr(emit_post, "emit_fixup", guard.lifted(
+        emit_post.emit_fixup, fixups, lambda val, *a: val.device.type))
+    return calls, fixups
+
 
 @pytest.mark.parametrize("name", PIPELINE)
 def test_pipeline_reaches_steady_state(artifacts, name, monkeypatch):
     """First call, rebalance, refinement: exact lists on every call; then
     the verified steady state runs decode_emit (mark_deg) and the cached
     post-pass only, with no host synchronisation outside the kernel's
-    plain version, and gives the input lists again."""
+    plain versions (decode_emit's, and the fixup's where the layout has
+    dirty nodes), and gives the input lists again."""
     adj, base = artifacts[name]
     dec = TorchGraphDecoder(TorchGraph.load(base), device="cpu")
     pl = None
@@ -409,26 +436,18 @@ def test_pipeline_reaches_steady_state(artifacts, name, monkeypatch):
     assert pl.get("verified"), "plan never reached the verified state"
     assert "node_work" in pl and "safe_np" in pl
 
-    real = graph_decode.decode_emit
-    calls = []
     guard = _NoHostSync()
-
-    def spy(*args, **kw):
-        calls.append(kw.get("mark_deg"))
-        guard.__exit__()
-        try:
-            return real(*args, **kw)
-        finally:
-            guard.__enter__()
+    calls, fixups = _spy_kernels(monkeypatch, guard)
 
     def no_token_decode(*args, **kw):
         raise AssertionError("token decode in the steady state")
 
-    monkeypatch.setattr(graph_decode, "decode_emit", spy)
     monkeypatch.setattr(graph_decode, "decode_blocks", no_token_decode)
     with guard:
         out = dec.decode_to_adjacency_device(LANES)
     assert calls == [True]
+    assert fixups == (["cpu"] if pl["post_meta"]["fx_nodes"].shape[0]
+                      else [])
     _assert_lists(adj, *out)
 
 

@@ -2,8 +2,10 @@
 package's on the same channels: the contract channels that
 tools/proto_merged_emit.emit_channels simulates, as the JAX package's own
 test_emit_post.py uses them (3000 nodes with dirty nodes; 800 nodes with
-every 7th list empty). Everything is integer and compared exactly
-(tolerance 0)."""
+every 7th list empty), and the same 3000 nodes at window 16 with unbounded
+references, whose dirty chains run dozens of fixup rounds deep. The fixup
+kernel's plain version (ops/fixup_cuda.py) is held to the rounds on each.
+Everything is integer and compared exactly (tolerance 0)."""
 
 import os
 import sys
@@ -20,13 +22,20 @@ from webgraph_ans_tpu.bvgraph.synth import synth_web_graph
 from webgraph_ans_tpu.ops import emit_post as jpost
 from webgraph_ans_tpu.ops.reconstruct_device import _quant as jquant
 from webgraph_ans_torch.ops import emit_post as tpost
+from webgraph_ans_torch.ops import fixup_cuda
 from webgraph_ans_torch.ops import reconstruct_device as trecon
+from webgraph_ans_torch.utils import trace
 import jax_native_build
 
 # the JAX package's native library, built once before any test loads it
 jax_native_build.ensure()
 
-# the JAX post_steady takes the same cached-layout arguments in this order
+# the JAX post_steady's cached-layout arguments, in order: the marker
+# layout and the per-slot arrays of its round-by-round fixup
+JAX_STEADY_KEYS = ("lane_of_d", "mrow_d", "kind_d", "starts_flat_d",
+                   "fx_rowf", "fx_valid", "fx_ispl", "fx_pd", "fx_elmask",
+                   "fx_srcF", "fx_srcC", "fx_sortn", "fx_dst", "fx_destF",
+                   "fx_offs", "Dall")
 STEADY_KEYS = tpost.STEADY_KEYS
 
 
@@ -45,7 +54,24 @@ def _with_empty_nodes(base: Adjacency, every: int = 7) -> Adjacency:
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)).view(np.int32))
+    """A fresh int32 tensor of a's bit patterns (the steady fixup patches
+    its val in place, so no test shares the fixtures' memory)."""
+    return torch.from_numpy(
+        np.ascontiguousarray(np.asarray(a)).view(np.int32)).clone()
+
+
+def _rounds(channels, both, name):
+    """The round-by-round fixup of a fixture's channel: the per-slot
+    arrays built from its first decode, as _fixup_steady reads them."""
+    _, (val, _, nib, _, _, _) = channels[name]
+    mct = both[name][3]
+    rc = {k: v for k, v in mct.items() if not k.startswith("fx_")}
+    if rc["roffs"]:
+        tpost.build_fixup_cache(rc, tpost.fixup_provider(_t(val), _t(nib)),
+                                torch.device("cpu"), rounds=True)
+    else:
+        rc["fx_offs"] = ()
+    return tpost._fixup_steady(_t(val), rc)
 
 
 @pytest.fixture(scope="module")
@@ -57,6 +83,9 @@ def channels():
     made["dirty_3000"] = (adj, emit_channels(adj, L=8, T=256))
     adj = _with_empty_nodes(synth_web_graph(800, seed=9))
     made["empty_800"] = (adj, emit_channels(adj, L=4, T=256))
+    adj = synth_web_graph(3000, seed=3)
+    made["deep_3000"] = (adj, emit_channels(adj, W=16, MR=2_000_000_000,
+                                            MI=4, L=8, T=256))
     return made
 
 
@@ -76,11 +105,16 @@ def both(channels):
     return out
 
 
-NAMES = ("dirty_3000", "empty_800")
+NAMES = ("dirty_3000", "empty_800", "deep_3000")
 
 
 def test_fixture_exercises_dirty_nodes(channels):
     assert len(channels["dirty_3000"][1][5]) > 0
+
+
+def test_deep_fixture_runs_many_rounds(both):
+    """The window-16 fixture's dirty chains take at least 8 rounds."""
+    assert both["deep_3000"][3]["rounds"] >= 8
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -139,13 +173,50 @@ def test_post_steady_matches_jax(channels, both, name):
     _, (val, xch, _, _, _, _) = channels[name]
     _, rt, mcj, mct = both[name]
     assert set(STEADY_KEYS) <= set(mct)
+    assert not set(tpost.ROUNDS_KEYS) & set(mct)
     sj = jpost.post_steady(jnp.asarray(val), jnp.asarray(xch),
-                           *(mcj[k] for k in STEADY_KEYS))
+                           *(mcj[k] for k in JAX_STEADY_KEYS))
     st = tpost.post_steady(_t(val), _t(xch), *(mct[k] for k in STEADY_KEYS))
     for a, b in zip(sj, st):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
     for b, first in zip(st[:2], rt[:2]):
         np.testing.assert_array_equal(b.numpy(), first.numpy())
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_fixup_kernel_plain_matches_rounds(channels, both, name):
+    """The fixup kernel's plain version, node by node over the cached node
+    layout, gives the steady state's channel: the port's transcription of
+    the rounds (_fixup_steady, over the per-slot arrays) and the JAX
+    package's post_steady."""
+    _, (val, xch, _, _, _, _) = channels[name]
+    _, _, mcj, mct = both[name]
+    sj = jpost.post_steady(jnp.asarray(val), jnp.asarray(xch),
+                           *(mcj[k] for k in JAX_STEADY_KEYS))[0]
+    got = fixup_cuda.emit_fixup_plain(_t(val), mct["fx_nodes"],
+                                      mct["fx_srcs"])
+    np.testing.assert_array_equal(got.numpy(),
+                                  _rounds(channels, both, name).numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(sj))
+
+
+def test_post_steady_on_cpu_takes_the_plain_path(channels, both):
+    """CPU tensors run the plain version: no kernel is built, loaded or
+    counted (the module imports without nvcc or a card); a device other
+    than cpu or cuda is refused."""
+    _, (val, xch, _, _, _, _) = channels["deep_3000"]
+    mct = both["deep_3000"][3]
+    launches = fixup_cuda.emit_fixup.launches
+    counted = trace.counters().get("fixup_kernel_launches", 0)
+    tpost.post_steady(_t(val), _t(xch), *(mct[k] for k in STEADY_KEYS))
+    fixup_cuda.emit_fixup(_t(val), mct["fx_nodes"], mct["fx_srcs"])
+    assert fixup_cuda.emit_fixup.launches == launches
+    assert trace.counters().get("fixup_kernel_launches", 0) == counted
+    assert fixup_cuda._lib is None
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fixup_cuda.emit_fixup(torch.empty((8, 2), dtype=torch.int32,
+                                          device="meta"),
+                              mct["fx_nodes"], mct["fx_srcs"])
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -1,16 +1,24 @@
 """The kernels' CUDA sources, built for the host, against their plain
 PyTorch versions.
 
-csrc/decode_blocks.cu, csrc/decode_emit.cu and csrc/encode_blocks.cu are
-compiled with g++ against a stub cuda_runtime.h that runs one thread at a
-time: each block's threads run one after another, shared memory is a host
-buffer and __ldg a plain load (neither decode kernel synchronises its
-threads after the parameters are staged; the encode kernels share nothing
-between threads, and their cp.async record ring copies at once on the
-host). Every output channel must equal the plain version's bit for bit
+csrc/decode_blocks.cu, csrc/decode_emit.cu, csrc/encode_blocks.cu and
+csrc/emit_fixup.cu are compiled with g++ against a stub cuda_runtime.h
+that runs one thread at a time: each block's threads run one after
+another, shared memory is a host buffer, __ldg and __ldcg plain loads and
+atomics plain updates (neither decode kernel synchronises its threads
+after the parameters are staged; the encode kernels share nothing between
+threads, and their cp.async record ring copies at once on the host; the
+fixup kernel, whose threads meet at barriers, runs as one block of one
+thread, which takes the dirty nodes in order, so a parent's flag is always
+set before a child polls it). Every output channel must equal the plain version's bit for bit
 (tolerance 0) on small artifacts that cover the grammar variants, every
 dirty row code of the merged emit, both mark_deg modes, and block sizes
-that do and do not divide the lane count; the encode kernels on models
+that do and do not divide the lane count; the fixup kernel on the
+node layout the post-pass caches from a run with dirty nodes and on
+seeded layouts with long lists,
+ties and many runs, also built with a shared-memory list and a run limit
+small enough that the spill region and the counting path serve; the
+encode kernels on models
 with max_folds 0, 1 and 7, a fold-threshold exponent past 31, a frame-1
 component, a real graph's model, lanes shorter than cap and a cap shorter
 than a lane, built with several lanes a block and ring depths. The card's
@@ -34,7 +42,8 @@ from webgraph_ans_torch.bvgraph.graph import Adjacency
 from webgraph_ans_torch.bvgraph.random_access import ANSBvGraph
 from webgraph_ans_torch.bvgraph.store import compress_adjacency, dump_tokens
 from webgraph_ans_torch.bvgraph.synth import synth_web_graph
-from webgraph_ans_torch.ops import cuda_build
+from webgraph_ans_torch.ops import cuda_build, emit_post
+from webgraph_ans_torch.ops.fixup_cuda import FOLLOWS, emit_fixup_plain
 from webgraph_ans_torch.ops.decode_torch import decode_blocks_plain
 from webgraph_ans_torch.ops.encode_torch import (_emit_pairs,
                                                  encode_blocks_plain,
@@ -69,6 +78,10 @@ inline int __clz(uint32_t x) { return x ? __builtin_clz(x) : 32; }
 inline uint32_t __umulhi(uint32_t a, uint32_t b) {
   return static_cast<uint32_t>((static_cast<uint64_t>(a) * b) >> 32);
 }
+inline void __threadfence() {}
+template <class T> inline T __ldcg(const T* p) { return *p; }
+inline int atomicAdd(int* p, int v) { const int o = *p; *p += v; return o; }
+inline int atomicExch(int* p, int v) { const int o = *p; *p = v; return o; }
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
 """
@@ -580,3 +593,121 @@ def test_encode_blocks_host_build_matches_plain(encode_libs, encode_runs,
     for ch, (g, w) in enumerate(zip((emit, states, final_states, wtotals,
                                      ok), want)):
         assert torch.equal(g, w), ch
+
+
+FIXUP_DRIVER = r"""
+}  // namespace
+extern "C" void run_fixup(int* val, const int* nodes, const int* srcs,
+                          int nd, int E, int G, int* work) {
+  blockDim.x = 1;
+  blockIdx.x = 0;
+  threadIdx.x = 0;
+  emit_fixup_kernel(val, nodes, srcs, nd, E, G, work, work + nd,
+                    work + nd + 1);
+}
+"""
+# the kernel's constants, and a build whose shared-memory list and run
+# limit are small enough that the spill region and the counting path serve
+FIXUP_VARIANTS = {"default": {}, "spill_count": {"kSmemInts": 8,
+                                                 "kMaxRuns": 2}}
+
+
+@pytest.fixture(scope="module")
+def fixup_libs(tmp_path_factory):
+    """csrc/emit_fixup.cu built for the host once per variant."""
+    d = tmp_path_factory.mktemp("host_fixup")
+    (d / "cuda_runtime.h").write_text(STUB)
+    base = _host_source("emit_fixup.cu", "// Host launch code.",
+                        FIXUP_DRIVER)
+    libs = {}
+    for name, consts in FIXUP_VARIANTS.items():
+        src = base
+        for key, value in consts.items():
+            src, n = re.subn(rf"(constexpr int {key} = )[^;]+;",
+                             rf"\g<1>{value};", src)
+            assert n == 1, key
+        cpp, so = d / f"fixup_{name}.cpp", d / f"fixup_{name}.so"
+        cpp.write_text(src)
+        subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
+                        "-I", str(d), "-o", str(so), str(cpp)], check=True,
+                       capture_output=True)
+        lib = ctypes.CDLL(str(so))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.run_fixup.argtypes = [vp] * 3 + [ci, ci, ci, vp]
+        lib.run_fixup.restype = None
+        libs[name] = lib
+    return libs
+
+
+def _fixup_host(lib, val, nodes, srcs):
+    """The host build on a copy of val, patched in place."""
+    out = val.clone()
+    nd, E = nodes.shape[0], srcs.shape[0]
+    work = torch.zeros(nd + 1 + 2 * E, dtype=torch.int32)
+    lib.run_fixup(out.data_ptr(), nodes.data_ptr(), srcs.data_ptr(), nd, E,
+                  val.shape[1], work.data_ptr())
+    return out
+
+
+def _seeded_layout(seed: int):
+    """A layout of 40 rows, one a lane, with lists of 0 to 300 elements
+    drawn with ties (values below 50) or without; a row follows the row
+    before (a path), waits on an earlier row's flag, or reads no parent;
+    a row with a parent reads part of its list from the parent's."""
+    rng = np.random.default_rng(seed)
+    G, nd = 48, 40
+    degs = rng.choice([0, 1, 2, 5, 17, 40, 300], nd)
+    S = int(degs.max()) + 4
+    val = rng.integers(0, 1 << 20, (S, G)).astype(np.int32)
+    val[:, ::2] %= 50
+    rows, srcs = [], []
+    for q, deg in enumerate(degs):
+        own = q + G * rng.integers(0, S, deg)
+        kind = rng.integers(0, 3) if q else 0
+        link = (-1, FOLLOWS, int(rng.integers(0, max(q, 1))))[kind]
+        parent = q - 1 if link == FOLLOWS else link
+        if link >= 0:
+            rows[link][4] = 1
+        if parent >= 0 and degs[parent] > 0:
+            j = rng.integers(0, degs[parent], deg)
+            own = np.where(rng.random(deg) < 0.5, ~j, own)
+        rows.append([sum(len(a) for a in srcs), deg, q, link, 0])
+        srcs.append(own)
+    return (torch.from_numpy(val), torch.tensor(rows, dtype=torch.int32),
+            torch.from_numpy(np.concatenate(srcs).astype(np.int32)))
+
+
+@pytest.fixture(scope="module")
+def dirty_layout(emit_runs):
+    """The fixup's node layout that the post-pass caches from the 32-row
+    ring case's channels (dirty nodes of codes 8 and 9), and its val."""
+    dec, pl, _, _, (val, xch, nib, *_) = emit_runs[_case_id(EMIT_CASES[0])]
+    lens = pl["ends_np"] - pl["starts_np"]
+    lane_of = np.repeat(np.arange(len(lens), dtype=np.int32), lens)
+    mc = {}
+    emit_post.postprocess(val, xch, nib, lane_of, pl["starts_np"],
+                          dec.num_nodes, meta_cache=mc)
+    assert mc["rounds"] >= 2
+    return val, mc
+
+
+@pytest.mark.parametrize("variant", list(FIXUP_VARIANTS))
+def test_emit_fixup_host_build_matches_plain_on_dirty_layout(
+        fixup_libs, dirty_layout, variant):
+    val, mc = dirty_layout
+    want = emit_fixup_plain(val.clone(), mc["fx_nodes"], mc["fx_srcs"])
+    got = _fixup_host(fixup_libs[variant], val, mc["fx_nodes"],
+                      mc["fx_srcs"])
+    assert torch.equal(got, want)
+    assert not torch.equal(want, val)
+
+
+@pytest.mark.parametrize("seed", [5, 6, 7])
+@pytest.mark.parametrize("variant", list(FIXUP_VARIANTS))
+def test_emit_fixup_host_build_matches_plain_on_seeded_layouts(
+        fixup_libs, variant, seed):
+    val, nodes, srcs = _seeded_layout(seed)
+    want = emit_fixup_plain(val.clone(), nodes, srcs)
+    assert torch.equal(_fixup_host(fixup_libs[variant], val, nodes, srcs),
+                       want)
+

@@ -483,9 +483,10 @@ def test_successors_batch_device_steady_state(emit_graph, jax_device_batches,
                                               torch_emit_ra, monkeypatch):
     """Once the 2048-lane plan is verified, a batch runs decode_emit once
     (mark_deg) and the cached post-pass and gather with no tensor read to
-    the host outside the kernel's plain version, and gives the same
+    the host outside the kernels' plain versions (decode_emit's, and the
+    fixup's where the layout has dirty nodes), and gives the same
     batch."""
-    from test_torch_emit_pipeline import _NoHostSync
+    from test_torch_emit_pipeline import _NoHostSync, _spy_kernels
 
     ra = torch_emit_ra
     q = torch.tensor(DEVICE_QUERIES)
@@ -496,20 +497,13 @@ def test_successors_batch_device_steady_state(emit_graph, jax_device_batches,
         if pl.get("verified") and "fx_offs" in pl.get("post_meta", {}):
             break
     assert pl.get("verified"), "plan never reached the verified state"
-    real, calls, guard = graph_decode.decode_emit, [], _NoHostSync()
-
-    def spy(*args, **kw):
-        calls.append(kw.get("mark_deg"))
-        guard.__exit__()
-        try:
-            return real(*args, **kw)
-        finally:
-            guard.__enter__()
-
-    monkeypatch.setattr(graph_decode, "decode_emit", spy)
+    guard = _NoHostSync()
+    calls, fixups = _spy_kernels(monkeypatch, guard)
     with guard:
         got = ra.successors_batch_device(q)
     assert calls == [True]
+    assert fixups == (["cpu"] if pl["post_meta"]["fx_nodes"].shape[0]
+                      else [])
     _assert_device_batch(got, jax_device_batches[None],
                          emit_graph[0].to_lists())
 

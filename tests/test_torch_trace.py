@@ -20,7 +20,8 @@ from webgraph_ans_torch.bvgraph.graph import Adjacency, load_bvgraph
 from webgraph_ans_torch.bvgraph.random_access import ANSBvGraph
 from webgraph_ans_torch.bvgraph.store import compress_adjacency, store
 from webgraph_ans_torch.bvgraph.synth import synth_web_graph
-from webgraph_ans_torch.ops import cuda_build, decode_cuda, emit_cuda
+from webgraph_ans_torch.ops import (cuda_build, decode_cuda, emit_cuda,
+                                    fixup_cuda)
 from webgraph_ans_torch.ops.decode_torch import round_cap
 from webgraph_ans_torch.ops.graph_decode import TorchGraphDecoder
 from webgraph_ans_torch.ops.random_torch import (TorchEmitRandomAccess,
@@ -461,8 +462,9 @@ def test_hc_steady_decode_makes_no_host_sync(tmp_path):
     """On the card, cnr-2000 at the high-compression configuration's store
     parameters and lanes: once the plan is verified and its CUDA graph
     captured, a steady decode under set_sync_debug_mode("error") raises
-    nothing, runs decode_emit once and gives the BV file's lists; the
-    plan's stages are printed."""
+    nothing, runs decode_emit and the fixup kernel once each (counted on
+    the wrapper and as fixup_kernel_launches) and gives the BV file's
+    lists; the plan's stages are printed."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "false)")
@@ -479,6 +481,8 @@ def test_hc_steady_decode_makes_no_host_sync(tmp_path):
         print(json.dumps({"stage": st.name, "seconds": st.seconds,
                           **st.attrs}))
     launches = emit_cuda.decode_emit.launches
+    fixups = fixup_cuda.emit_fixup.launches
+    counted = trace.counters().get("fixup_kernel_launches", 0)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -487,6 +491,8 @@ def test_hc_steady_decode_makes_no_host_sync(tmp_path):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert emit_cuda.decode_emit.launches == launches + 1
+    assert fixup_cuda.emit_fixup.launches == fixups + 1
+    assert trace.counters()["fixup_kernel_launches"] == counted + 1
     adj = load_bvgraph(CNR)[0]
     ro = torch.from_numpy(adj.offsets.astype(np.int64)).cuda()
     rs = torch.from_numpy(adj.succs.astype(np.int64)).cuda()

@@ -28,7 +28,10 @@ node x's successors are succs2d.flatten()[starts_flat[x] + k*G] for
 k < degs[x]. `to_dense_csr` converts to (offsets, succs).
 
 The steady state (post_steady) reads only layout cached from a verified
-first decode and issues no host synchronisation.
+first decode and issues no host synchronisation. Its fixup runs over a
+node layout (ops/fixup_cuda.py): one hand-written kernel on CUDA, its
+plain version on the CPU; the JAX package's rounds (_fixup_steady) are
+kept as their reference.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from ..utils import trace
+from .fixup_cuda import FOLLOWS, emit_fixup
 from .reconstruct_device import (_cumsum, _cumsum_tok, _quant, _sort2,
                                  unpack_nibbles)
 
@@ -227,15 +231,96 @@ def _post_fused(val, xch, nib, lane_of, order, cpos_n, pdirty, parent,
     return succs2d, starts_flat, tabs["deg"], tabs
 
 
-def build_fixup_cache(mc: dict, val_np_provider, device):
-    """Precomputes the per-slot index and layout arrays of the compact
-    fixup from the verified first decode (host numpy): slot -> node maps,
+def _node_layout(mc: dict, order, ln, valid, is_el, is_pl, pd, par, j,
+                 rowf, srcF, startsF):
+    """The fixup kernel's node layout (ops/fixup_cuda.py): (nodes [nd, 5],
+    srcs [E]) int32 numpy. The dirty nodes that read a dirty parent's list
+    form a forest; it is cut into paths, each following a node's child of
+    the deepest subtree, and the rows list the paths one after another in
+    the order of their first nodes' (chain depth, node), each node's
+    elements in its rows' order. Raises RuntimeError where the layout
+    breaks what both fixups rely on: a node's elements are its degree, a
+    dirty parent's placeholder indexes the parent's list, the parent
+    comes earlier."""
+    nd, tot = len(order), int(ln.sum())
+    deg = mc["deg_np"][order]
+    elm = (valid & is_el)[:tot]
+    ordl = np.repeat(np.arange(nd), ln)
+    if not np.array_equal(np.bincount(ordl[elm], minlength=nd), deg):
+        raise RuntimeError("a dirty node's elements differ from its degree")
+    pd = pd[:tot]
+    jt = j[:tot]
+    if (is_pl[:tot] & ((jt < 0) | (jt >= mc["deg_np"][par[:tot]]))).any():
+        raise RuntimeError("a placeholder points past its parent's list")
+    src = np.where(pd, ~jt, np.where(is_pl[:tot], srcF[:tot], rowf[:tot]))
+    ordinal = np.full(len(mc["parent"]), -1, np.int64)
+    ordinal[order] = np.arange(nd)
+    reads = np.zeros(nd, bool)
+    reads[ordl[pd]] = True
+    pord = np.where(reads, ordinal[mc["parent"][order]], -1)
+    if (reads & ((pord < 0) | (pord >= np.arange(nd)))).any():
+        raise RuntimeError("a dirty node reads a parent not before it")
+    # each node's tallest subtree, then the child a path follows
+    height = np.ones(nd, np.int64)
+    for i in range(nd - 1, -1, -1):
+        if pord[i] >= 0:
+            height[pord[i]] = max(height[pord[i]], height[i] + 1)
+    kids = np.nonzero(pord >= 0)[0]
+    kids = kids[np.lexsort((kids, -height[kids], pord[kids]))]
+    first = np.ones(len(kids), bool)
+    first[1:] = pord[kids][1:] != pord[kids][:-1]
+    follows = np.zeros(nd, bool)
+    follows[kids[first]] = True
+    path = np.arange(nd)
+    for i in np.nonzero(follows)[0]:        # ordinals rise along a path
+        path[i] = path[pord[i]]
+    rows = np.lexsort((np.arange(nd), path))
+    row_of = np.empty(nd, np.int64)
+    row_of[rows] = np.arange(nd)
+    link = np.where(follows, FOLLOWS,
+                    np.where(pord >= 0, row_of[pord], -1))
+    publish = np.zeros(nd, np.int64)
+    publish[pord[(pord >= 0) & ~follows]] = 1
+    rdeg = deg[rows]
+    ebase = np.cumsum(rdeg) - rdeg
+    nodes = np.stack([ebase, rdeg, startsF[order][rows], link[rows],
+                      publish[rows]], 1)
+    # each row's elements, moved from their ordinal's place to the row's
+    pos = np.repeat((np.cumsum(deg) - deg)[rows] - ebase, rdeg)
+    return nodes, src[elm][pos + np.arange(len(pos))]
+
+
+def fixup_provider(val, nib):
+    """build_fixup_cache's val_np_provider over one decode's val and nib
+    channels: (values, codes) numpy at flat rows."""
+    G = val.shape[1]
+    dev = val.device
+    flatv = val.reshape(-1)
+    nibf = nib.reshape(-1)
+
+    def provider(rowf):
+        rowf_d = trace.upload(rowf.astype(np.int64), dev)
+        vals = trace.fetch(flatv[rowf_d])
+        row, lane = rowf_d // G, rowf_d % G
+        words = nibf[(row >> 3) * G + lane].long() & 0xFFFFFFFF
+        codes = trace.fetch((words >> ((row & 7) * 4)) & 0xF)
+        return vals, codes
+
+    return provider
+
+
+def build_fixup_cache(mc: dict, val_np_provider, device,
+                      rounds: bool = False):
+    """Precomputes the steady fixup's layout from the verified first decode
+    (host numpy): the fixup kernel's node layout under "fx_nodes" and
+    "fx_srcs" (device tensors) and the static round offsets under
+    "fx_offs". Values are never cached. With `rounds`, also the per-slot
+    index and layout arrays of the round-by-round fixup (ROUNDS_KEYS:
     row positions, code classes, placeholder sources, sort group shapes,
-    destinations. Values are never cached. Stores device tensors under
-    "fx_*" keys and the static round offsets under "fx_offs".
+    destinations), the reference that _fixup_steady runs.
 
     val_np_provider(rowf [Dall] int64) -> (values, codes) numpy: the first
-    decode's val channel and row codes at flat rows."""
+    decode's val channel and row codes at flat rows (fixup_provider)."""
     n = len(mc["parent"])
     order = mc["order_np"]
     span = mc["span_np"]
@@ -272,13 +357,26 @@ def build_fixup_cache(mc: dict, val_np_provider, device):
     j = np.where(is_pl, vals0.astype(np.int64), 0)
     srcF = np.where(is_pl & ~pd,
                     np.clip(startsF[par] + j * G, 0, mc["SG"] - 1), 0)
+    nodes, srcs = _node_layout(mc, order, ln, valid, is_el, is_pl, pd, par,
+                               j, rowf, srcF, startsF)
+
+    def dev_i32(a):
+        return trace.upload(np.ascontiguousarray(a, np.int32), device)
+
+    def dev_bool(a):
+        return trace.upload(np.ascontiguousarray(a, bool), device)
+
+    mc["fx_offs"] = tuple(mc["roffs"])
+    mc["fx_nodes"] = dev_i32(nodes)
+    mc["fx_srcs"] = dev_i32(srcs)
+    if not rounds:
+        return
+
     srcC = np.where(pd, np.clip(cpos[par] + j, 0, Dall - 1), 0)
     cbase = np.zeros(Dall, np.int64)
     cbase[:tot] = cb_r
-
     # per-round sort layout: sorted group ids, ranks, destinations
-    sortn_rounds, dst_rounds, offs = [], [], []
-    off = 0
+    sortn_rounds, dst_rounds = [], []
     for (lo, lpad, tlen) in mc["roffs"]:
         sl = slice(lo, lo + lpad)
         in_round = np.arange(lpad) < tlen
@@ -297,19 +395,10 @@ def build_fixup_cache(mc: dict, val_np_provider, device):
         dst = np.where(put, gb + rank + lo, Dall)
         sortn_rounds.append(sortn)
         dst_rounds.append(dst)
-        offs.append((off, lpad, lo))
-        off += lpad
     rank_f = np.arange(Dall) - cbase
     okf = valid & (rank_f < deg[nodec])
     destF = np.where(okf, startsF[nodec] + rank_f * G, mc["SG"])
 
-    def dev_i32(a):
-        return trace.upload(np.ascontiguousarray(a, np.int32), device)
-
-    def dev_bool(a):
-        return trace.upload(np.ascontiguousarray(a, bool), device)
-
-    mc["fx_offs"] = tuple(offs)
     mc["fx_rowf"] = dev_i32(np.where(valid, rowf, 0))
     mc["fx_valid"] = dev_bool(valid)
     mc["fx_ispl"] = dev_bool(is_pl)
@@ -317,26 +406,36 @@ def build_fixup_cache(mc: dict, val_np_provider, device):
     mc["fx_elmask"] = dev_bool(is_el & valid)
     mc["fx_srcF"] = dev_i32(srcF)
     mc["fx_srcC"] = dev_i32(srcC)
-    mc["fx_sortn"] = dev_i32(np.concatenate(sortn_rounds)
-                             if sortn_rounds else np.zeros(1))
-    mc["fx_dst"] = dev_i32(np.concatenate(dst_rounds)
-                           if dst_rounds else np.zeros(1))
+    mc["fx_sortn"] = dev_i32(np.concatenate(sortn_rounds))
+    mc["fx_dst"] = dev_i32(np.concatenate(dst_rounds))
     mc["fx_destF"] = dev_i32(destF)
 
 
-def _fixup_steady(val, rowf, valid, ispl, pd, elmask, srcF, srcC, sortn,
-                  dst, destF, fx_offs: tuple, Dall: int):
-    """Compact fixup with every index and mask cached (build_fixup_cache):
-    two Dall-scale gathers, then per round one gather, one sort and one
-    scatter, then one final scatter."""
+# the per-slot arrays of the round-by-round fixup, in _fixup_steady's order
+ROUNDS_KEYS = ("fx_rowf", "fx_valid", "fx_ispl", "fx_pd", "fx_elmask",
+               "fx_srcF", "fx_srcC", "fx_sortn", "fx_dst", "fx_destF")
+
+
+def _fixup_steady(val, mc: dict):
+    """The round-by-round fixup of the JAX package's post_steady, with
+    every index and mask cached (build_fixup_cache with rounds): two
+    Dall-scale gathers, then per round one gather, one sort and one
+    scatter, then one final scatter. A new tensor; the reference the
+    fixup kernel and its plain version are held to."""
+    if not mc["fx_offs"]:
+        return val.clone()
+    rowf, valid, ispl, pd, elmask, srcF, srcC, sortn, dst, destF = (
+        mc[k] for k in ROUNDS_KEYS)
     S, G = val.shape
     F = val.reshape(-1)
     Cv0 = torch.where(valid, _take(F, rowf), 0).to(I32)
     vF = _take(F, srcF)                     # placeholders of clean parents
     Cv = torch.where(ispl & ~pd, vF, Cv0)
-    for (off, lpad, lo) in fx_offs:
+    off = 0
+    for (lo, lpad, _) in mc["fx_offs"]:
         sl = slice(lo, lo + lpad)
         so = slice(off, off + lpad)
+        off += lpad
         sl_v = Cv[sl]
         vC = _take(Cv, srcC[sl])            # placeholders of dirty parents
         v = torch.where(ispl[sl] & pd[sl], vC, sl_v)
@@ -349,31 +448,25 @@ def _fixup_steady(val, rowf, valid, ispl, pd, elmask, srcF, srcC, sortn,
 # post_steady's cached-layout arguments, in order, as postprocess keys
 # them in its meta cache: post_steady(val, xch, *(mc[k] for k in
 # STEADY_KEYS))
-STEADY_KEYS = ("lane_of_d", "mrow_d", "kind_d", "starts_flat_d", "fx_rowf",
-               "fx_valid", "fx_ispl", "fx_pd", "fx_elmask", "fx_srcF",
-               "fx_srcC", "fx_sortn", "fx_dst", "fx_destF", "fx_offs",
-               "Dall")
+STEADY_KEYS = ("lane_of_d", "mrow_d", "kind_d", "starts_flat_d", "fx_nodes",
+               "fx_srcs")
 
 
-def post_steady(val, xch, lane_of, mrow, kind, starts_flat, fx_rowf,
-                fx_valid, fx_ispl, fx_pd, fx_elmask, fx_srcF, fx_srcC,
-                fx_sortn, fx_dst, fx_destF, fx_offs: tuple, Dall: int):
+def post_steady(val, xch, lane_of, mrow, kind, starts_flat, fx_nodes,
+                fx_srcs):
     """Steady-state post-pass: the marker layout (rows, kinds, starts,
-    dirty-slot structure) is cached from the verified first decode, the
+    dirty-node layout) is cached from the verified first decode, the
     kernel ran with mark_deg (each node's decoded outdegree on its marker
     row of xch), so degrees are one n-scale gather and values come from
-    this decode's val channel plus the cached-index fixup. No host
-    synchronisation."""
+    this decode's val channel, which the fixup (ops/fixup_cuda.py
+    emit_fixup: the kernel on CUDA, its plain version on the CPU) patches
+    in place over the node layout. No host synchronisation."""
     G = val.shape[1]
     deg = _take(xch.reshape(-1), mrow * G + lane_of)
     deg = torch.where(kind == 2, 0, deg).to(I32)
-    if fx_offs:
-        succs2d = _fixup_steady(val, fx_rowf, fx_valid, fx_ispl, fx_pd,
-                                fx_elmask, fx_srcF, fx_srcC, fx_sortn,
-                                fx_dst, fx_destF, fx_offs, Dall)
-    else:
-        succs2d = val
-    return succs2d, starts_flat, deg
+    if fx_nodes.shape[0]:
+        val = emit_fixup(val, fx_nodes, fx_srcs)
+    return val, starts_flat, deg
 
 
 def postprocess(val, xch, nib, lane_of_np, lane_starts_np, n: int,
@@ -457,27 +550,11 @@ def postprocess(val, xch, nib, lane_of_np, lane_starts_np, n: int,
         mc["deg_np"] = trace.fetch(tabs["deg"]).astype(np.int64)
         mc["lane_of_np"] = np.asarray(lane_of_np).astype(np.int64)
         mc["G"], mc["SG"] = G, S * G
-        flatv = val.reshape(-1)
-        nibf = nib.reshape(-1)
-
-        def provider(rowf):
-            rowf_d = trace.upload(rowf.astype(np.int64), dev)
-            vals = trace.fetch(flatv[rowf_d])
-            row, lane = rowf_d // G, rowf_d % G
-            words = nibf[(row >> 3) * G + lane].long() & 0xFFFFFFFF
-            codes = trace.fetch((words >> ((row & 7) * 4)) & 0xF)
-            return vals, codes
-
-        build_fixup_cache(mc, provider, dev)
+        build_fixup_cache(mc, fixup_provider(val, nib), dev)
     elif "fx_offs" not in mc:
         mc["fx_offs"] = ()
-        z = torch.zeros(1, dtype=I32, device=dev)
-        zb = torch.zeros(1, dtype=torch.bool, device=dev)
-        for key in ("fx_rowf", "fx_srcF", "fx_srcC", "fx_sortn", "fx_dst",
-                    "fx_destF"):
-            mc[key] = z
-        for key in ("fx_valid", "fx_ispl", "fx_pd", "fx_elmask"):
-            mc[key] = zb
+        mc["fx_nodes"] = torch.zeros((0, 5), dtype=I32, device=dev)
+        mc["fx_srcs"] = torch.zeros(0, dtype=I32, device=dev)
     return _post_fused(val, xch, nib, lane_of, mc["order_d"], mc["cpos_d"],
                        mc["pdirty_d"], mc["parent_d"], n, mc["roffs"],
                        mc["Dall"])

@@ -24,7 +24,7 @@ import torch
 
 from ..bvgraph.random_access import ANSBvGraph
 from ..utils import native, trace
-from . import emit_cuda, emit_post
+from . import emit_cuda, emit_post, fixup_cuda
 from .cuda_build import KernelError
 from .decode_cuda import decode_blocks
 from .decode_torch import (UNROLL, build_decoder_tables_np,
@@ -777,26 +777,30 @@ class TorchGraphDecoder:
         """The steady state on CUDA as one CUDA graph, the counterpart of
         the JAX package's one fused steady program (_emit_e2e_fused): the
         first steady call runs eagerly, then records the kernel and the
-        post-pass (some hundred small launches) into a graph, with one
-        host synchronisation as the capture starts (a `plan.capture`
-        stage); every later call replays it (a `decode.steady` span). A
-        replay overwrites the graph's outputs, so each call returns copies
-        of succs2d and degs (one device copy of [cap, L] + [n] int32);
-        starts_flat is the cached layout itself, as in the eager call."""
+        post-pass (a few small launches and the fixup kernel) into a
+        graph, with one host synchronisation as the capture starts (a
+        `plan.capture` stage); every later call replays it (a
+        `decode.steady` span). A replay overwrites the graph's outputs,
+        so each call returns copies of succs2d and degs (one device copy
+        of [cap, L] + [n] int32); starts_flat is the cached layout itself,
+        as in the eager call."""
         captured = pl.get("graph")
         if captured is None:
             with trace.stage("plan.capture", lanes=pl["ptrs"].shape[0]):
                 out = self._steady(pl)
                 graph = torch.cuda.CUDAGraph()
+                fixups = fixup_cuda.emit_fixup.captured
                 with torch.cuda.graph(graph):
                     static = self._steady(pl)
-                pl["graph"] = (graph, static)
+                fixups = fixup_cuda.emit_fixup.captured - fixups
+                pl["graph"] = (graph, static, fixups)
             trace.count("decode_graph_captures")
             return out
-        graph, (succs2d, starts_flat, degs) = captured
+        graph, (succs2d, starts_flat, degs), fixups = captured
         with trace.span("decode.steady"):
             graph.replay()
             decode_emit.launches += 1      # the replay runs the kernel once
+            fixup_cuda.count_launch(fixups)    # and the fixups it recorded
             return succs2d.clone(), starts_flat, degs.clone()
 
     def decode_to_adjacency_device(self, num_lanes: int = 2048,
