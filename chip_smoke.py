@@ -18,9 +18,9 @@ reconstruct), the merged-emit path
 (TorchGraphDecoder.decode_to_adjacency_device at 2048 lanes, through
 rebalance and refinement into the verified steady state, which replays
 one CUDA graph, checked through to_dense_csr; the steady call also
-without the graph, and at 4096 lanes; its steady fixup kernel,
-emit_fixup, held bit for bit against its plain version and the CPU
-path's rounds, and timed beside both), and block-parallel compression
+without the graph, and at 4096 lanes; its fixup kernel, emit_fixup, held
+bit for bit against its plain version and timed beside its bound), and
+block-parallel compression
 (store with 512 encode blocks and the device model search, its artifact
 decoded back through both device paths and the sequential reader). Then
 the paths built on the same kernels: the sort-path reconstruction
@@ -101,6 +101,10 @@ LANES = 4096
 WIDE_LANES = 32768
 EMIT_LANES = 2048
 WIDE_EMIT_LANES = 4096
+# the calls of a merged-emit plan that run its full post-pass, each with
+# one fixup launch where its layout has dirty nodes: plan.first,
+# plan.bounds and plan.verify
+PLANNING_CALLS = 3
 SMALL_LANES = 64
 TIMED_RUNS = 20
 SHARDS = 4      # device entries of the sharded paths, all on DEVICE
@@ -1445,9 +1449,9 @@ def emit_to_steady(sc: Scale, dec, adj, name: str, host: dict,
             "lanes": len(pl["starts_np"]),
             "empty_lanes": int(np.sum(pl["starts_np"] >= pl["ends_np"])),
             "T": pl.get("T"),
-            "dirty_nodes": (int(np.sum(mc["pdirty_np"]))
-                            if "pdirty_np" in mc else None),
-            "verified": bool(pl.get("verified")),
+            "dirty_nodes": (len(mc["order_np"]) if "order_np" in mc
+                            else None),
+            "verified": dec.emit_steady(lanes),
             "exact": adjacency_exact(res3, adj), "launches": counts})
         del res3
         if i == 0:
@@ -1455,7 +1459,7 @@ def emit_to_steady(sc: Scale, dec, adj, name: str, host: dict,
             first["ms"] = cuda_ms(lambda: emit_cuda.decode_emit(
                 *fargs, T=first["T"]))
             del fargs
-        if pl.get("verified") and "fx_offs" in mc:
+        if dec.emit_steady(lanes):
             break
     # a layout with dirty nodes runs the fixup kernel once a steady call
     fixups = ["emit_fixup"] if pl["post_meta"]["fx_nodes"].shape[0] else []
@@ -1475,7 +1479,7 @@ def emit_to_steady(sc: Scale, dec, adj, name: str, host: dict,
               "launches": counts,
               **emit_cuda.launch_geometry(dec.window, pl["T"])}
     if not (all(c["exact"] for c in calls) and steady_exact
-            and pl.get("verified") and not pl.get("emit_broken")):
+            and dec.emit_steady(lanes)):
         raise SystemExit(f"{name}: lists differ from the input, or the plan "
                          "never verified")
     return calls, steady, first, pl
@@ -1728,36 +1732,21 @@ def scale_random_access(sc: Scale, adj, gs, edec, tokens: int):
 
 
 def fixup_hold(dec, pl) -> dict:
-    """The steady fixup of a verified merged-emit plan on the card: the
+    """The fixup of a verified merged-emit plan on the card: the
     emit_fixup kernel on a mark_deg decode's val channel, held bit for bit
-    against its plain version (node by node) and against the rounds of the
-    JAX package's post_steady (emit_post._fixup_steady, over the per-slot
-    arrays that build_fixup_cache makes with `rounds`, from a decode at the
-    verifying call's cap, before the plan's was tightened). Both versions
-    patch val in place, so each call gets a fresh copy of it. Times the
-    kernel's wrapper (zeroed flags and the launch, on fresh copies), the
-    rounds eager and the rounds replayed as one CUDA graph (CUDA events,
-    median of TIMED_RUNS), beside the bound of the bytes the fixup needs:
-    the node table, each element's source, its gathered value and its
-    write, each read or written once (bound_ms). `hold_launches` counts
-    the hold's own calls of the kernel, none of the main path."""
-    from webgraph_ans_torch.ops import emit_cuda, emit_post, fixup_cuda
+    against its plain version (node by node). Both patch val in place, so
+    each call gets a fresh copy of it. Times the kernel's wrapper (zeroed
+    flags and the launch, on fresh copies; CUDA events, median of
+    TIMED_RUNS) beside the bound of the bytes the fixup needs: the node
+    table, each element's source, its gathered value and its write, each
+    read or written once (bound_ms). `hold_launches` counts the hold's own
+    calls of the kernel, none of the main path."""
+    from webgraph_ans_torch.ops import emit_cuda, fixup_cuda
 
     mc = pl["post_meta"]
     nodes, srcs = mc["fx_nodes"], mc["fx_srcs"]
     eargs = emit_args(dec, pl, pl["cap"])
     val = emit_cuda.decode_emit(*eargs, T=pl["T"], mark_deg=True)[0]
-    G = val.shape[1]
-    first = emit_cuda.decode_emit(*emit_args(dec, pl, mc["SG"] // G),
-                                  T=pl["T"])
-    rc = {k: v for k, v in mc.items() if not k.startswith("fx_")}
-    emit_post.build_fixup_cache(
-        rc, emit_post.fixup_provider(first[0], first[2]), val.device,
-        rounds=True)
-    del first
-
-    def rounds():
-        return emit_post._fixup_steady(val, rc)
 
     def fresh(k):
         copies = iter([val.clone() for _ in range(k)])
@@ -1768,27 +1757,17 @@ def fixup_hold(dec, pl) -> dict:
     plain, plain_s = timed(lambda: fixup_cuda.emit_fixup_plain(
         val.clone(), nodes, srcs))
     held = compare([kernel], [plain])
-    by_rounds = compare([kernel], [rounds()])
     t_kernel = cuda_ms(fresh(TIMED_RUNS + 3))
-    t_rounds = cuda_ms(rounds)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        rounds()
-    t_graph = cuda_ms(graph.replay)
-    del graph
     nd, E = nodes.shape[0], srcs.shape[0]
     degs = nodes[:, 1].cpu().numpy()
     need = nodes.numel() * 4 + E * 12
     return {"rounds": mc["rounds"], "dirty_nodes": nd, "elements": E,
             "parent_reads": int((srcs < 0).sum()),
             "deg_median": float(np.median(degs)), "deg_max": int(degs.max()),
-            "slots": rc["Dall"],
-            "max_lpad": max(lp for _, lp, _ in rc["fx_offs"]),
             "hold_launches": fixup_cuda.emit_fixup.launches - launches,
-            "ms": t_kernel, "rounds_eager_ms": t_rounds,
-            "rounds_graph_ms": t_graph, "plain_ms": plain_s * 1e3,
+            "ms": t_kernel, "plain_ms": plain_s * 1e3,
             "bytes": need, "bound_ms": need / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "plain": held, "rounds_hold": by_rounds}
+            "bound_by": "bytes", "plain": held}
 
 
 def hc_safe_break_phase(adj, runs: PathRuns, smi: str, tmp: str) -> dict:
@@ -1842,7 +1821,7 @@ def hc_safe_break_phase(adj, runs: PathRuns, smi: str, tmp: str) -> dict:
             steady_ns_per_arc=steady["device_ms"]["median"] * 1e6 / arcs,
             T=pl["T"], cap=pl["cap"],
             empty_lanes=int(np.sum(pl["starts_np"] >= pl["ends_np"])),
-            dirty_nodes=int(np.sum(pl["post_meta"]["pdirty_np"])),
+            dirty_nodes=len(pl["post_meta"]["order_np"]),
             emit_broken=pl.get("emit_broken"), safe_boundaries=safe,
             kernel=kernel)
     if safe["wrongly_safe"]:
@@ -1850,10 +1829,9 @@ def hc_safe_break_phase(adj, runs: PathRuns, smi: str, tmp: str) -> dict:
                          "that a reference chain crosses")
     fixup = fixup_hold(dec, pl)
     sc.emit("hc_fixup_vs_plain", dec=dec, lanes=HC_LANES, **fixup)
-    if not (fixup["plain"]["bit_equal"] and fixup["rounds_hold"]["bit_equal"]
-            and fixup["hold_launches"] > 0):
+    if not (fixup["plain"]["bit_equal"] and fixup["hold_launches"] > 0):
         raise SystemExit("hc safe-break: the fixup kernel differs from its "
-                         "plain version or the rounds")
+                         "plain version")
     kernel["fixup"] = fixup
     return kernel
 
@@ -1908,9 +1886,9 @@ def ondemand_device(dec, adj, runs: PathRuns, name: str) -> dict:
 
     def steady():
         pl = dec._plans.get(("emit", lanes), {})
-        ready = pl.get("verified") and "fx_offs" in pl.get("post_meta", {})
         # on the card the first steady call records the CUDA graph
-        return ready and ("graph" in pl or dec.device.type != "cuda")
+        return dec.emit_steady(lanes) and ("graph" in pl
+                                           or dec.device.type != "cuda")
 
     def warm_then_reps():
         warm = []
@@ -2297,8 +2275,8 @@ def main() -> int:
             epl = edec._plans[("emit", EMIT_LANES)]
             cold.append({"seconds": sec, "ns_per_arc": sec * 1e9 / arcs,
                          "exact": adjacency_exact(res3, adj),
-                         "verified": bool(epl.get("verified"))})
-            if epl.get("verified") and "fx_offs" in epl.get("post_meta", {}):
+                         "verified": edec.emit_steady(EMIT_LANES)})
+            if edec.emit_steady(EMIT_LANES):
                 break
         cold_launches = {
             "decode_emit": emit_cuda.decode_emit.launches,
@@ -2347,7 +2325,7 @@ def main() -> int:
         steady_s = statistics.median(steady)
         emit("emit_e2e", graph="cnr-2000", lanes=len(epl["starts_np"]),
              T=epl["T"], cap=epl["cap"],
-             dirty_nodes=int(np.sum(mc["pdirty_np"])),
+             dirty_nodes=len(mc["order_np"]),
              fixup_rounds=mc["rounds"], cold=cold,
              steady_seconds=steady_s, steady_ns_per_arc=steady_s * 1e9 / arcs,
              steady_runs=steady, steady_exact=steady_exact,
@@ -2357,14 +2335,14 @@ def main() -> int:
              steady_launches=steady_launches,
              emit_broken=epl.get("emit_broken"))
         if not (all(c["exact"] for c in cold) and steady_exact
-                and cold[-1]["verified"] and not epl.get("emit_broken")):
+                and edec.emit_steady(EMIT_LANES)):
             raise SystemExit("merged emit: end-to-end adjacency is not "
                              "exact, or the plan never verified")
         if (path_launches["decode_emit"] < 1
                 or path_launches["decode_blocks_aux"] < 1
                 or steady_launches["decode_emit"] != len(steady)
                 or steady_launches["emit_fixup"] != len(steady)
-                or cold_launches["emit_fixup"]
+                or cold_launches["emit_fixup"] > PLANNING_CALLS
                 or steady_launches["decode_blocks_aux"]
                 or steady_launches["decode_blocks"]):
             raise SystemExit(f"merged emit: unexpected launches "
@@ -2380,8 +2358,7 @@ def main() -> int:
             epl4 = edec4._plans[("emit", WIDE_EMIT_LANES)]
             cold4.append({"seconds": sec,
                           "exact": adjacency_exact(res3, adj)})
-            if epl4.get("verified") and "fx_offs" in epl4.get("post_meta",
-                                                              {}):
+            if edec4.emit_steady(WIDE_EMIT_LANES):
                 break
         steady4 = [timed(lambda: edec4.decode_to_adjacency_device(
             WIDE_EMIT_LANES)) for _ in range(3)]
@@ -2391,24 +2368,23 @@ def main() -> int:
             runs=10)
         emit("emit_e2e_wide", graph="cnr-2000",
              lanes=len(epl4["starts_np"]), T=epl4["T"], cap=epl4["cap"],
-             cold=cold4, verified=bool(epl4.get("verified")),
+             cold=cold4, verified=edec4.emit_steady(WIDE_EMIT_LANES),
              steady_seconds=statistics.median(t for _, t in steady4),
              steady_device_ms=t_steady4, steady_exact=exact4)
         if not (exact4 and all(c["exact"] for c in cold4)
-                and epl4.get("verified")):
+                and edec4.emit_steady(WIDE_EMIT_LANES)):
             raise SystemExit(f"merged emit at {WIDE_EMIT_LANES} lanes: not "
                              "exact, or the plan never verified")
         del edec4, steady4
 
-        # ---- 9b. the steady fixup kernel vs its plain version and the
-        # rounds, on the verified cnr-2000 plan ----
+        # ---- 9b. the fixup kernel vs its plain version, on the verified
+        # cnr-2000 plan ----
         fix_w7 = fixup_hold(edec, epl)
         emit("fixup_vs_plain", graph="cnr-2000", lanes=EMIT_LANES, **fix_w7)
         if not (fix_w7["plain"]["bit_equal"]
-                and fix_w7["rounds_hold"]["bit_equal"]
                 and fix_w7["hold_launches"] > 0):
             raise SystemExit("cnr-2000: the fixup kernel differs from its "
-                             "plain version or the rounds")
+                             "plain version")
 
         # ---- 10. merged-emit kernel vs plain on the verified cnr-2000
         # plan (the steady state's mark_deg mode), and its time ----
@@ -2544,8 +2520,8 @@ def main() -> int:
             bpl = bdec._plans[("emit", EMIT_LANES)]
             emit_calls.append({"seconds": sec,
                                "exact": adjacency_exact(res3, adj),
-                               "verified": bool(bpl.get("verified"))})
-            if bpl.get("verified") and "fx_offs" in bpl.get("post_meta", {}):
+                               "verified": bdec.emit_steady(EMIT_LANES)})
+            if bdec.emit_steady(EMIT_LANES):
                 break
         res3, steady_b = timed(
             lambda: bdec.decode_to_adjacency_device(EMIT_LANES))
@@ -2679,11 +2655,8 @@ def main() -> int:
         "ms": fix_w7["ms"]["median"], "plain_ms": fix_w7["plain_ms"],
         "bound_ms": fix_w7["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "lanes": EMIT_LANES,
-        "rounds_eager_ms": fix_w7["rounds_eager_ms"]["median"],
-        "rounds_graph_ms": fix_w7["rounds_graph_ms"]["median"],
         "hc_safe_break_w16": {k: hc_kernel["fixup"][k] for k in (
-            "rounds", "dirty_nodes", "ms", "bound_ms", "rounds_eager_ms",
-            "rounds_graph_ms")},
+            "rounds", "dirty_nodes", "ms", "bound_ms")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

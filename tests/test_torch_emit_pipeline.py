@@ -290,7 +290,7 @@ def test_block_plan_one_lane_per_block(artifacts, xla_decoder):
             assert [x.tolist() for x in got] == want
             pl = dec._plans[("emit", lanes)]
             plans.append((pl["starts_np"].copy(), pl["ends_np"].copy()))
-        assert pl.get("verified") and "node_work" in pl
+        assert dec.emit_steady(lanes) and "node_work" in pl
         for starts, ends in plans[1:]:     # rebalanced, refined, steady
             np.testing.assert_array_equal(starts, bounds[:-1])
             np.testing.assert_array_equal(ends, bounds[1:])
@@ -431,9 +431,9 @@ def test_pipeline_reaches_steady_state(artifacts, name, monkeypatch):
     for _ in range(3):
         _assert_lists(adj, *dec.decode_to_adjacency_device(LANES))
         pl = dec._plans[("emit", LANES)]
-        if pl.get("verified") and "fx_offs" in pl.get("post_meta", {}):
+        if dec.emit_steady(LANES):
             break
-    assert pl.get("verified"), "plan never reached the verified state"
+    assert dec.emit_steady(LANES), "plan never reached the verified state"
     assert "node_work" in pl and "safe_np" in pl
 
     guard = _NoHostSync()
@@ -449,6 +449,37 @@ def test_pipeline_reaches_steady_state(artifacts, name, monkeypatch):
     assert fixups == (["cpu"] if pl["post_meta"]["fx_nodes"].shape[0]
                       else [])
     _assert_lists(adj, *out)
+
+
+def test_emit_steady_follows_the_plan(artifacts, tmp_path, caplog):
+    """emit_steady is False until the plan is verified (the first call,
+    then the split, refinement and verification of the second) and True
+    after it; a plan sent to the sort path is never steady: a window-20
+    artifact, or a verified plan marked broken."""
+    adj, base = artifacts["serial"]
+    dec = TorchGraphDecoder(TorchGraph.load(base), device="cpu")
+    seen = [dec.emit_steady(LANES)]
+    for _ in range(3):
+        _assert_lists(adj, *dec.decode_to_adjacency_device(LANES))
+        seen.append(dec.emit_steady(LANES))
+    assert seen == [False, False, True, True]
+    pl = dec._plans[("emit", LANES)]
+    assert pl["verified"] and not pl.get("emit_broken")
+    assert not dec.emit_steady(2 * LANES)
+    pl["emit_broken"] = "marked broken"
+    assert not dec.emit_steady(LANES)
+
+    lists = _rand_lists(60, 3, 6)
+    w20 = str(tmp_path / "w20")
+    _save(w20, compress_adjacency(Adjacency.from_lists(lists), 20, 3, 2), 1)
+    dec = TorchGraphDecoder(TorchGraph.load(w20), device="cpu")
+    with caplog.at_level(logging.WARNING, logger=graph_decode.__name__):
+        for _ in range(3):
+            got = emit_post.to_host_lists(
+                *dec.decode_to_adjacency_device(LANES), 60)
+            assert [x.tolist() for x in got] == lists
+            assert not dec.emit_steady(LANES)
+    assert dec._plans[("emit", LANES)]["emit_broken"] == "window 20 > 16"
 
 
 def test_random_access_enters_at_block_start(artifacts):

@@ -3,9 +3,10 @@ package's on the same channels: the contract channels that
 tools/proto_merged_emit.emit_channels simulates, as the JAX package's own
 test_emit_post.py uses them (3000 nodes with dirty nodes; 800 nodes with
 every 7th list empty), and the same 3000 nodes at window 16 with unbounded
-references, whose dirty chains run dozens of fixup rounds deep. The fixup
-kernel's plain version (ops/fixup_cuda.py) is held to the rounds on each.
-Everything is integer and compared exactly (tolerance 0)."""
+references, whose dirty chains run dozens of fixup rounds deep. Every
+call's fixup is the fixup kernel's plain version (ops/fixup_cuda.py) over
+the node layout, held on each to the JAX package's rounds (its
+post_steady). Everything is integer and compared exactly (tolerance 0)."""
 
 import os
 import sys
@@ -58,20 +59,6 @@ def _t(a) -> torch.Tensor:
     its val in place, so no test shares the fixtures' memory)."""
     return torch.from_numpy(
         np.ascontiguousarray(np.asarray(a)).view(np.int32)).clone()
-
-
-def _rounds(channels, both, name):
-    """The round-by-round fixup of a fixture's channel: the per-slot
-    arrays built from its first decode, as _fixup_steady reads them."""
-    _, (val, _, nib, _, _, _) = channels[name]
-    mct = both[name][3]
-    rc = {k: v for k, v in mct.items() if not k.startswith("fx_")}
-    if rc["roffs"]:
-        tpost.build_fixup_cache(rc, tpost.fixup_provider(_t(val), _t(nib)),
-                                torch.device("cpu"), rounds=True)
-    else:
-        rc["fx_offs"] = ()
-    return tpost._fixup_steady(_t(val), rc)
 
 
 @pytest.fixture(scope="module")
@@ -173,7 +160,6 @@ def test_post_steady_matches_jax(channels, both, name):
     _, (val, xch, _, _, _, _) = channels[name]
     _, rt, mcj, mct = both[name]
     assert set(STEADY_KEYS) <= set(mct)
-    assert not set(tpost.ROUNDS_KEYS) & set(mct)
     sj = jpost.post_steady(jnp.asarray(val), jnp.asarray(xch),
                            *(mcj[k] for k in JAX_STEADY_KEYS))
     st = tpost.post_steady(_t(val), _t(xch), *(mct[k] for k in STEADY_KEYS))
@@ -186,17 +172,14 @@ def test_post_steady_matches_jax(channels, both, name):
 @pytest.mark.parametrize("name", NAMES)
 def test_fixup_kernel_plain_matches_rounds(channels, both, name):
     """The fixup kernel's plain version, node by node over the cached node
-    layout, gives the steady state's channel: the port's transcription of
-    the rounds (_fixup_steady, over the per-slot arrays) and the JAX
-    package's post_steady."""
+    layout, gives the channel of the JAX package's rounds (its
+    post_steady: a gather, a sort and a scatter a chain level)."""
     _, (val, xch, _, _, _, _) = channels[name]
     _, _, mcj, mct = both[name]
     sj = jpost.post_steady(jnp.asarray(val), jnp.asarray(xch),
                            *(mcj[k] for k in JAX_STEADY_KEYS))[0]
     got = fixup_cuda.emit_fixup_plain(_t(val), mct["fx_nodes"],
                                       mct["fx_srcs"])
-    np.testing.assert_array_equal(got.numpy(),
-                                  _rounds(channels, both, name).numpy())
     np.testing.assert_array_equal(got.numpy(), np.asarray(sj))
 
 
@@ -221,14 +204,56 @@ def test_post_steady_on_cpu_takes_the_plain_path(channels, both):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_second_postprocess_uses_cache(channels, both, name):
-    """A second postprocess with the filled meta cache takes the fused
-    path and gives the same result."""
+    """A second postprocess with the filled meta cache reuses its node
+    layout (no new one is built) and gives the same result."""
     adj, (val, xch, nib, lane_of, bounds, _) = channels[name]
     rt, mct = both[name][1], both[name][3]
+    nodes = mct["fx_nodes"]
     again = tpost.postprocess(_t(val), _t(xch), _t(nib), lane_of, bounds,
                               adj.num_nodes, meta_cache=mct)
+    assert mct["fx_nodes"] is nodes
     for a, b in zip(again[:3], rt[:3]):
         assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def clean_channels():
+    """300 nodes in one lane with a 4096-row ring: every copy source is
+    still in the ring, so no node is dirty."""
+    from proto_merged_emit import emit_channels
+
+    adj = synth_web_graph(300, seed=5)
+    return adj, emit_channels(adj, L=1, T=4096)
+
+
+@pytest.mark.parametrize("name", ["dirty_3000", "deep_3000", "clean_300"])
+def test_first_postprocess_runs_the_fixup_once(channels, clean_channels,
+                                               name, monkeypatch):
+    """A plan's first postprocess finishes its dirty nodes through
+    emit_fixup over the node layout it has just built: one call, over
+    every dirty node, where nodes are dirty; none where none is. The lists
+    are the input's either way."""
+    adj, (val, xch, nib, lane_of, bounds, dirty) = (
+        clean_channels if name == "clean_300" else channels[name])
+    assert bool(dirty) == (name != "clean_300")
+    real, calls = tpost.emit_fixup, []
+
+    def spy(v, nodes, srcs):
+        calls.append(nodes.shape[0])
+        return real(v, nodes, srcs)
+
+    monkeypatch.setattr(tpost, "emit_fixup", spy)
+    mc = {}
+    out = tpost.postprocess(_t(val), _t(xch), _t(nib), lane_of, bounds,
+                            adj.num_nodes, meta_cache=mc)
+    assert calls == ([len(dirty)] if dirty else [])
+    assert len(mc["order_np"]) == len(dirty)
+    offs = adj.offsets.astype(np.int64)
+    lists = tpost.to_host_lists(*out[:3], adj.num_nodes)
+    for x in range(adj.num_nodes):
+        np.testing.assert_array_equal(lists[x].astype(np.uint32),
+                                      adj.succs[offs[x]:offs[x + 1]],
+                                      err_msg=f"node {x}")
 
 
 def test_unpack_nib_matches_jax(channels):

@@ -292,9 +292,9 @@ def test_block_artifact_merged_emit(block_artifact):
         s2d, st, dg = dec.decode_to_adjacency_device(8)
         got = emit_post.to_host_lists(s2d, st, dg, len(lists))
         assert [x.tolist() for x in got] == lists
-        if dec._plans[("emit", 8)].get("verified"):
+        if dec.emit_steady(8):
             break
-    assert dec._plans[("emit", 8)].get("verified")
+    assert dec.emit_steady(8)
 
 
 def test_block_artifact_sequential_and_random(block_artifact):

@@ -680,12 +680,13 @@ def _seeded_layout(seed: int):
 @pytest.fixture(scope="module")
 def dirty_layout(emit_runs):
     """The fixup's node layout that the post-pass caches from the 32-row
-    ring case's channels (dirty nodes of codes 8 and 9), and its val."""
+    ring case's channels (dirty nodes of codes 8 and 9), and its val (the
+    post-pass fixes up a copy: it patches its val in place)."""
     dec, pl, _, _, (val, xch, nib, *_) = emit_runs[_case_id(EMIT_CASES[0])]
     lens = pl["ends_np"] - pl["starts_np"]
     lane_of = np.repeat(np.arange(len(lens), dtype=np.int32), lens)
     mc = {}
-    emit_post.postprocess(val, xch, nib, lane_of, pl["starts_np"],
+    emit_post.postprocess(val.clone(), xch, nib, lane_of, pl["starts_np"],
                           dec.num_nodes, meta_cache=mc)
     assert mc["rounds"] >= 2
     return val, mc

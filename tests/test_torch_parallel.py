@@ -233,10 +233,9 @@ def test_sharded_emit_on_a_verified_plan_is_the_steady_call():
                                        res.pointers), device="cpu")
     for _ in range(4):
         dec.decode_to_adjacency_device(4)
-        pl = dec._plans[("emit", 4)]
-        if pl.get("verified") and "fx_offs" in pl["post_meta"]:
+        if dec.emit_steady(4):
             break
-    assert pl.get("verified")
+    assert dec.emit_steady(4)
     got = sharded.sharded_emit_adjacency(["cpu"] * 2, dec, num_lanes=4)
     for a, b in zip(got, dec.decode_to_adjacency_device(4)):
         assert torch.equal(a, b)
@@ -263,7 +262,7 @@ def test_sharded_emit_alone_reaches_the_verified_plan():
         for a, b in zip(got, single.decode_to_adjacency_device(6)):
             assert a.dtype == b.dtype and torch.equal(a, b)
     pl = dec._plans[("emit", 6)]
-    assert pl.get("verified") and "fx_offs" in pl["post_meta"]
+    assert dec.emit_steady(6)
     assert "rows_np" in pl and "node_work" in pl
     offs = adj.offsets.astype(np.int64)
     assert _adjacency_lists(*got) == [adj.succs[offs[x]:offs[x + 1]].tolist()

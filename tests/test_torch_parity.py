@@ -82,6 +82,9 @@ NOT_CARRIED = {
         "decode_blocks takes the lane arrays and builds its registers",
     "ops/decode_pallas.py:make_init_regs_device":
         "the device form of make_init_regs (same reason)",
+    "ops/emit_post.py:fixup_dirty_compact":
+        "the port finishes every call's dirty chains with emit_fixup over "
+        "the node layout",
     "ops/encode_jax.py:encode_blocks_auto":
         "the fat-lane fallback for VMEM budgets the CUDA kernel has not",
     "ops/encode_pallas.py:build_pallas_enc_tables":

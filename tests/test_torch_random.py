@@ -494,9 +494,10 @@ def test_successors_batch_device_steady_state(emit_graph, jax_device_batches,
     for _ in range(4):
         ra.successors_batch_device(q)
         pl = ra.dec._plans[("emit", ra.FULL_DECODE_LANES)]
-        if pl.get("verified") and "fx_offs" in pl.get("post_meta", {}):
+        if ra.dec.emit_steady(ra.FULL_DECODE_LANES):
             break
-    assert pl.get("verified"), "plan never reached the verified state"
+    assert ra.dec.emit_steady(ra.FULL_DECODE_LANES), \
+        "plan never reached the verified state"
     guard = _NoHostSync()
     calls, fixups = _spy_kernels(monkeypatch, guard)
     with guard:
@@ -572,9 +573,9 @@ def test_hc_safe_break_artifact_keeps_the_merged_emit(monkeypatch):
     for _ in range(4):
         _assert_lists(adj, *dec.decode_to_adjacency_device(16))
         pl = dec._plans[("emit", 16)]
-        if pl.get("verified") and "fx_offs" in pl.get("post_meta", {}):
+        if dec.emit_steady(16):
             break
-    assert pl.get("verified") and pl.get("safe_np") is not None
+    assert dec.emit_steady(16) and pl.get("safe_np") is not None
     assert np.array_equal(pl["hstarts_np"], pl["starts_np"])
     calls.clear()
     _assert_lists(adj, *dec.decode_to_adjacency_device(16))

@@ -64,7 +64,7 @@ def steady_decoder():
     dec = TorchGraphDecoder(ANSBvGraph(res.prelude, res.states,
                                        res.pointers), device="cpu")
     mark = _last_id()
-    while not dec._plans.get(("emit", LANES), {}).get("verified"):
+    while not dec.emit_steady(LANES):
         dec.decode_to_adjacency_device(LANES)
     return adj, dec, _since(mark, trace.stages())
 
@@ -192,8 +192,8 @@ def test_hc_store_decodes_to_the_plain_lists(hc_decoder):
     dec, wrong, stages = hc_decoder
     assert wrong == [0, 0, 0]
     pl = dec._plans[("emit", HC_LANES)]
-    assert pl.get("verified") and not pl.get("emit_broken")
-    assert "fx_offs" in pl["post_meta"] and pl["safe_np"] is not None
+    assert dec.emit_steady(HC_LANES)
+    assert pl["safe_np"] is not None
     assert not [s for s in stages if s.name == "plan.fallback"]
 
 

@@ -84,7 +84,7 @@ def make_plans(path: str) -> dict:
     for _ in range(6):
         edec.decode_to_adjacency_device(EMIT_LANES)
         epl = edec._plans[("emit", EMIT_LANES)]
-        if epl.get("verified") and "fx_offs" in epl.get("post_meta", {}):
+        if edec.emit_steady(EMIT_LANES):
             break
     else:
         raise SystemExit("the merged-emit plan never verified")

@@ -1,4 +1,4 @@
-// Steady-state dirty-chain fixup of the merged-emit post-pass: the nodes
+// Dirty-chain fixup of the merged-emit post-pass, on every call: the nodes
 // that decode_emit left dirty get their sorted successor lists, every
 // chain in one launch. Same contract and bits as the plain PyTorch
 // version fixup_cuda.emit_fixup_plain; bound to Python with ctypes by
@@ -6,8 +6,8 @@
 //
 // What it computes. A dirty node's elements sit in its own rows of the
 // [S, G] val channel, unsorted, with placeholders where it copies from its
-// reference (the parent), which may be dirty too. The node layout, cached
-// by emit_post.build_fixup_cache from the verified first decode, cuts the
+// reference (the parent), which may be dirty too. The node layout, built
+// by emit_post.build_fixup_cache from a plan's first decode, cuts the
 // dirty nodes that read a dirty parent's list into paths (each follows a
 // node's child of the deepest subtree) and lists each node's element
 // sources: a flat index into val (its own row, or a clean parent's row),
@@ -17,8 +17,8 @@
 // read before it writes them, and clean parents' rows, which no node
 // writes; a dirty parent's rows are read only after its flag.
 //
-// It replaces no TPU kernel: the JAX package's fixup is XLA (emit_post.py
-// _fixup_steady, one gather, one sort and one scatter a chain level), as
+// It replaces no TPU kernel: the JAX package's fixup is XLA (its
+// post_steady: one gather, one sort and one scatter a chain level), as
 // was the port's until this kernel. It was added because that form costs
 // a sort and a dozen small launches for each level of the dirty chains,
 // ~40 us a level on an H100, and the high-compression artifact's chains

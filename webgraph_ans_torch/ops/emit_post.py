@@ -19,19 +19,21 @@ run down column l):
   5 empty node, 0xF done.
 
 Dirty nodes emit grouped (placeholders for copies, then intervals, then
-residuals); the fixup gathers all dirty spans into one compact buffer in
-(dirty-chain depth, node) order, resolves placeholders from the already
-final parents round by round, sorts each node's slice and writes it back.
+residuals). Every call finishes them the same way: the fixup
+(ops/fixup_cuda.py emit_fixup: one hand-written kernel on CUDA, its plain
+version on the CPU) resolves each dirty node's placeholders from its
+parent's final list, in (dirty-chain depth, node) order, and writes the
+node's sorted list to its rows, over a node layout that a plan's first
+call builds (build_fixup_cache). The reference it is held to is the JAX
+package's post_steady (its rounds: a gather, a sort and a scatter a chain
+level) on the CPU, and emit_fixup_plain on the card.
 
 Result: succs2d [S, G] int32, starts_flat [n] int32, degs [n] int32, where
 node x's successors are succs2d.flatten()[starts_flat[x] + k*G] for
 k < degs[x]. `to_dense_csr` converts to (offsets, succs).
 
 The steady state (post_steady) reads only layout cached from a verified
-first decode and issues no host synchronisation. Its fixup runs over a
-node layout (ops/fixup_cuda.py): one hand-written kernel on CUDA, its
-plain version on the CPU; the JAX package's rounds (_fixup_steady) are
-kept as their reference.
+first decode and issues no host synchronisation.
 """
 
 from __future__ import annotations
@@ -41,12 +43,13 @@ import torch
 
 from ..utils import trace
 from .fixup_cuda import FOLLOWS, emit_fixup
-from .reconstruct_device import (_cumsum, _cumsum_tok, _quant, _sort2,
-                                 unpack_nibbles)
+from .reconstruct_device import _cumsum, _cumsum_tok, unpack_nibbles
 
 I32 = torch.int32
-UNROLL = 8
-BIG = 0x7FFFFFFF
+# the deepest dirty chain the post-pass takes: deeper artifacts keep the
+# sort path until the planner splits them across dirty lanes (ROADMAP §4
+# item 1); the node-layout fixup itself has no such bound
+MAX_DIRTY_DEPTH = 192
 
 # row codes
 C_EL, C_FIRST, C_HOLE, C_REFINFO, C_PLACE, C_EMPTY = range(6)
@@ -140,119 +143,34 @@ def _expand_spans(len_n, mask_n, Dcap: int):
     return node, k, valid, dbase
 
 
-def fixup_dirty_compact(val, nib, start_el, deg, span, lane_of, order,
-                        cpos_n, pdirty, parent, roffs: tuple, Dall: int):
-    """Compact-block fixup (first-call path): gathers every dirty span
-    into a compact buffer in (chain depth, node) order, resolves and sorts
-    each round's slice (parents of later rounds read the already-sorted
-    compact slices of earlier ones), and writes back with one scatter.
-
-    order [nd]: dirty node ids sorted by (chain depth, node), -1 padded;
-    cpos_n [n]: each dirty node's compact base; roffs: (round start,
-    padded length, true length) per round."""
-    S, G = val.shape
-    dev = val.device
-    n = start_el.shape[0]
-    F = val.reshape(-1)
-    nibf = nib.reshape(-1)
-    lane_of = lane_of.to(I32)
-    startsF = start_el * G + lane_of
-    pstartF = _take(startsF, parent)
-    nd = order.shape[0]
-
-    # slot -> dirty ordinal via scatter-max of ordinals at compact bases
-    ln = torch.where(order >= 0, _take(span, torch.clamp(order, min=0)),
-                     0).to(I32)
-    obase = _cumsum(ln) - ln
-    slots = torch.arange(Dall, dtype=I32, device=dev)
-    st = torch.clamp(torch.where(ln > 0, obase, Dall), 0, Dall + 1)
-    arr = torch.zeros(Dall + 2, dtype=I32, device=dev).scatter_reduce(
-        0, st.long(), torch.arange(nd, dtype=I32, device=dev), "amax")
-    ordl = torch.cummax(arr[:Dall], 0).values
-    node = _take(order, ordl)
-    k = slots - _take(obase, ordl)
-    valid = (node >= 0) & (k >= 0) & (k < _take(ln, ordl))
-    node = torch.clamp(node, min=0)
-
-    row = _take(start_el, node) + k
-    lane = _take(lane_of, node)
-    rowf = torch.where(valid, row * G + lane, 0)
-    wordf = torch.where(valid, (row >> 3) * G + lane, 0)
-    Cv = torch.where(valid, _take(F, rowf), 0).to(I32)
-    Cc = torch.where(valid, (_take(nibf, wordf) >> ((row & 7) * 4)) & 0xF,
-                     C_HOLE).to(I32)
-    cbase = _take(obase, ordl)
-
-    for (lo, lpad, tlen) in roffs:
-        sl_v = Cv[lo:lo + lpad]
-        sl_c = Cc[lo:lo + lpad]
-        sl_node = node[lo:lo + lpad]
-        sl_valid = valid[lo:lo + lpad]
-        is_el = (sl_c == C_EL) | (sl_c == C_FIRST) | (sl_c == C_PLACE)
-        is_pl = sl_valid & (sl_c == C_PLACE)
-        par = _take(parent, sl_node)
-        pd = _take(pdirty, par)
-        srcF = torch.clamp(_take(pstartF, sl_node) + sl_v * G, 0, S * G - 1)
-        srcC = torch.clamp(_take(cpos_n, par) + sl_v, 0, Dall - 1)
-        vF = _take(F, torch.where(is_pl & ~pd, srcF, 0))
-        vC = _take(Cv, torch.where(is_pl & pd, srcC, 0))
-        v = torch.where(is_pl, torch.where(pd, vC, vF), sl_v)
-        in_round = torch.arange(lpad, device=dev) < tlen
-        key = torch.where(sl_valid & is_el & in_round, v, BIG)
-        # slots past the true length belong to later rounds: push them
-        # past every real group
-        sortn = torch.where(in_round, sl_node, BIG)
-        sord, sv = _sort2(sortn, key)
-        gb = _take(cpos_n, torch.clamp(sord, 0, n - 1)) - lo
-        rank = torch.arange(lpad, dtype=I32, device=dev) - gb
-        put = ((sv != BIG) & (sord >= 0) & (rank >= 0)
-               & (rank < _take(deg, torch.clamp(sord, min=0))))
-        dst = torch.where(put, gb + rank + lo, Dall)
-        Cv = _set_drop(Cv, dst, sv)
-    # final write-back: compact value at (node, rank) -> its F row
-    rank_f = slots - cbase
-    okf = valid & (rank_f < _take(deg, node))
-    destF = torch.where(okf, _take(startsF, node) + rank_f * G, S * G)
-    return _set_drop(F, destF, Cv).reshape(S, G)
-
-
-def _post_fused(val, xch, nib, lane_of, order, cpos_n, pdirty, parent,
-                n: int, roffs: tuple, Dall: int):
-    """extract + fixup (first-call and verification path)."""
-    tabs = extract_node_tables(val, xch, nib, lane_of, n)
-    G = val.shape[1]
-    if roffs:
-        succs2d = fixup_dirty_compact(
-            val, nib, tabs["start_el"], tabs["deg"], tabs["span"],
-            lane_of, order, cpos_n, pdirty, parent, roffs, Dall)
-    else:
-        succs2d = val
-    starts_flat = tabs["start_el"] * G + lane_of.to(I32)
-    return succs2d, starts_flat, tabs["deg"], tabs
-
-
-def _node_layout(mc: dict, order, ln, valid, is_el, is_pl, pd, par, j,
-                 rowf, srcF, startsF):
+def _node_layout(mc: dict, deg, startsF, G: int, order, ordl, rowf, vals,
+                 codes):
     """The fixup kernel's node layout (ops/fixup_cuda.py): (nodes [nd, 5],
-    srcs [E]) int32 numpy. The dirty nodes that read a dirty parent's list
-    form a forest; it is cut into paths, each following a node's child of
-    the deepest subtree, and the rows list the paths one after another in
-    the order of their first nodes' (chain depth, node), each node's
-    elements in its rows' order. Raises RuntimeError where the layout
-    breaks what both fixups rely on: a node's elements are its degree, a
-    dirty parent's placeholder indexes the parent's list, the parent
-    comes earlier."""
-    nd, tot = len(order), int(ln.sum())
-    deg = mc["deg_np"][order]
-    elm = (valid & is_el)[:tot]
-    ordl = np.repeat(np.arange(nd), ln)
-    if not np.array_equal(np.bincount(ordl[elm], minlength=nd), deg):
+    srcs [E]) int32 numpy, from the dirty nodes' rows in fixup order
+    (ordl: each row's ordinal in order; rowf, vals, codes: its flat index
+    into val, value and code). The dirty nodes that read a dirty parent's
+    list form a forest; it is cut into paths, each following a node's
+    child of the deepest subtree, and the rows list the paths one after
+    another in the order of their first nodes' (chain depth, node), each
+    node's elements in its rows' order. Raises RuntimeError where the
+    layout breaks what the fixup relies on: a node's elements are its
+    degree, a placeholder indexes its parent's list, a dirty parent comes
+    earlier."""
+    nd = len(order)
+    dego = deg[order]
+    is_el = (codes == C_EL) | (codes == C_FIRST) | (codes == C_PLACE)
+    is_pl = codes == C_PLACE
+    par = mc["parent"][order][ordl]
+    pd = is_pl & (mc["ddep"][par] > 0)        # reads a dirty parent's list
+    # placeholder j values are layout (a position in the parent's list)
+    j = np.where(is_pl, vals.astype(np.int64), 0)
+    if not np.array_equal(np.bincount(ordl[is_el], minlength=nd), dego):
         raise RuntimeError("a dirty node's elements differ from its degree")
-    pd = pd[:tot]
-    jt = j[:tot]
-    if (is_pl[:tot] & ((jt < 0) | (jt >= mc["deg_np"][par[:tot]]))).any():
+    if (is_pl & ((j < 0) | (j >= deg[par]))).any():
         raise RuntimeError("a placeholder points past its parent's list")
-    src = np.where(pd, ~jt, np.where(is_pl[:tot], srcF[:tot], rowf[:tot]))
+    # ~j for a dirty parent's j-th successor, else a flat row of val: a
+    # clean parent's j-th successor or the node's own row
+    src = np.where(pd, ~j, np.where(is_pl, startsF[par] + j * G, rowf))
     ordinal = np.full(len(mc["parent"]), -1, np.int64)
     ordinal[order] = np.arange(nd)
     reads = np.zeros(nd, bool)
@@ -281,13 +199,13 @@ def _node_layout(mc: dict, order, ln, valid, is_el, is_pl, pd, par, j,
                     np.where(pord >= 0, row_of[pord], -1))
     publish = np.zeros(nd, np.int64)
     publish[pord[(pord >= 0) & ~follows]] = 1
-    rdeg = deg[rows]
+    rdeg = dego[rows]
     ebase = np.cumsum(rdeg) - rdeg
     nodes = np.stack([ebase, rdeg, startsF[order][rows], link[rows],
                       publish[rows]], 1)
     # each row's elements, moved from their ordinal's place to the row's
-    pos = np.repeat((np.cumsum(deg) - deg)[rows] - ebase, rdeg)
-    return nodes, src[elm][pos + np.arange(len(pos))]
+    pos = np.repeat((np.cumsum(dego) - dego)[rows] - ebase, rdeg)
+    return nodes, src[is_el][pos + np.arange(len(pos))]
 
 
 def fixup_provider(val, nib):
@@ -309,140 +227,33 @@ def fixup_provider(val, nib):
     return provider
 
 
-def build_fixup_cache(mc: dict, val_np_provider, device,
-                      rounds: bool = False):
-    """Precomputes the steady fixup's layout from the verified first decode
-    (host numpy): the fixup kernel's node layout under "fx_nodes" and
-    "fx_srcs" (device tensors) and the static round offsets under
-    "fx_offs". Values are never cached. With `rounds`, also the per-slot
-    index and layout arrays of the round-by-round fixup (ROUNDS_KEYS:
-    row positions, code classes, placeholder sources, sort group shapes,
-    destinations), the reference that _fixup_steady runs.
+def build_fixup_cache(mc: dict, tabs: dict, lane_of_np, val_np_provider):
+    """The fixup's node layout of a plan's first decode, on the node
+    tables' device: "fx_nodes" [nd, 5] and "fx_srcs" [E] int32 (empty
+    without dirty nodes). Reads the dirty nodes in fixup order, their
+    parents and chain depths from mc (_dirty_chains), and the node tables
+    `tabs` of the decode; values are never cached.
 
-    val_np_provider(rowf [Dall] int64) -> (values, codes) numpy: the first
-    decode's val channel and row codes at flat rows (fixup_provider)."""
-    n = len(mc["parent"])
-    order = mc["order_np"]
-    span = mc["span_np"]
-    start_el = mc["start_el_np"]
-    deg = mc["deg_np"]
-    lane_of = mc["lane_of_np"]
-    parent = mc["parent"]
-    pdirty = mc["pdirty_np"]
-    cpos = mc["cpos_np"]
-    Dall = mc["Dall"]
-    G = mc["G"]
-
-    # slot -> (node, k) in (chain depth, node) order
-    ln = span[order].astype(np.int64)
-    obase = np.concatenate([[0], np.cumsum(ln)])[:-1]
-    tot = int(ln.sum())
-    node = np.full(Dall, -1, np.int64)
-    k = np.zeros(Dall, np.int64)
-    cb_r = np.repeat(obase, ln)
-    node[:tot] = np.repeat(order, ln)
-    k[:tot] = np.arange(tot) - cb_r
-    valid = node >= 0
-    nodec = np.maximum(node, 0)
-    row = start_el[nodec] + k
-    rowf = np.where(valid, row * G + lane_of[nodec], 0)
-    vals0, codes = val_np_provider(rowf)
-    codes = np.where(valid, codes, C_HOLE)
-    is_el = (codes == C_EL) | (codes == C_FIRST) | (codes == C_PLACE)
-    is_pl = valid & (codes == C_PLACE)
-    par = parent[nodec]
-    pd = pdirty[par] & is_pl
-    startsF = start_el.astype(np.int64) * G + lane_of
-    # placeholder j values are layout (a position in the parent's list)
-    j = np.where(is_pl, vals0.astype(np.int64), 0)
-    srcF = np.where(is_pl & ~pd,
-                    np.clip(startsF[par] + j * G, 0, mc["SG"] - 1), 0)
-    nodes, srcs = _node_layout(mc, order, ln, valid, is_el, is_pl, pd, par,
-                               j, rowf, srcF, startsF)
-
-    def dev_i32(a):
-        return trace.upload(np.ascontiguousarray(a, np.int32), device)
-
-    def dev_bool(a):
-        return trace.upload(np.ascontiguousarray(a, bool), device)
-
-    mc["fx_offs"] = tuple(mc["roffs"])
-    mc["fx_nodes"] = dev_i32(nodes)
-    mc["fx_srcs"] = dev_i32(srcs)
-    if not rounds:
-        return
-
-    srcC = np.where(pd, np.clip(cpos[par] + j, 0, Dall - 1), 0)
-    cbase = np.zeros(Dall, np.int64)
-    cbase[:tot] = cb_r
-    # per-round sort layout: sorted group ids, ranks, destinations
-    sortn_rounds, dst_rounds = [], []
-    for (lo, lpad, tlen) in mc["roffs"]:
-        sl = slice(lo, lo + lpad)
-        in_round = np.arange(lpad) < tlen
-        elmask = valid[sl] & is_el[sl] & in_round
-        sortn = np.where(in_round, nodec[sl], BIG).astype(np.int64)
-        # the sort key is BIG wherever elmask is false, so the sorted
-        # group order (and each group's element count) is layout
-        key0 = np.where(elmask, 0, BIG)
-        o = np.lexsort((key0, sortn))
-        sord = sortn[o]
-        skey0 = key0[o]
-        gb = np.where(sord != BIG, cpos[np.clip(sord, 0, n - 1)] - lo, 0)
-        rank = np.arange(lpad) - gb
-        put = ((skey0 != BIG) & (sord != BIG) & (rank >= 0)
-               & (rank < deg[np.clip(sord, 0, n - 1)]))
-        dst = np.where(put, gb + rank + lo, Dall)
-        sortn_rounds.append(sortn)
-        dst_rounds.append(dst)
-    rank_f = np.arange(Dall) - cbase
-    okf = valid & (rank_f < deg[nodec])
-    destF = np.where(okf, startsF[nodec] + rank_f * G, mc["SG"])
-
-    mc["fx_rowf"] = dev_i32(np.where(valid, rowf, 0))
-    mc["fx_valid"] = dev_bool(valid)
-    mc["fx_ispl"] = dev_bool(is_pl)
-    mc["fx_pd"] = dev_bool(pd)
-    mc["fx_elmask"] = dev_bool(is_el & valid)
-    mc["fx_srcF"] = dev_i32(srcF)
-    mc["fx_srcC"] = dev_i32(srcC)
-    mc["fx_sortn"] = dev_i32(np.concatenate(sortn_rounds))
-    mc["fx_dst"] = dev_i32(np.concatenate(dst_rounds))
-    mc["fx_destF"] = dev_i32(destF)
-
-
-# the per-slot arrays of the round-by-round fixup, in _fixup_steady's order
-ROUNDS_KEYS = ("fx_rowf", "fx_valid", "fx_ispl", "fx_pd", "fx_elmask",
-               "fx_srcF", "fx_srcC", "fx_sortn", "fx_dst", "fx_destF")
-
-
-def _fixup_steady(val, mc: dict):
-    """The round-by-round fixup of the JAX package's post_steady, with
-    every index and mask cached (build_fixup_cache with rounds): two
-    Dall-scale gathers, then per round one gather, one sort and one
-    scatter, then one final scatter. A new tensor; the reference the
-    fixup kernel and its plain version are held to."""
-    if not mc["fx_offs"]:
-        return val.clone()
-    rowf, valid, ispl, pd, elmask, srcF, srcC, sortn, dst, destF = (
-        mc[k] for k in ROUNDS_KEYS)
-    S, G = val.shape
-    F = val.reshape(-1)
-    Cv0 = torch.where(valid, _take(F, rowf), 0).to(I32)
-    vF = _take(F, srcF)                     # placeholders of clean parents
-    Cv = torch.where(ispl & ~pd, vF, Cv0)
-    off = 0
-    for (lo, lpad, _) in mc["fx_offs"]:
-        sl = slice(lo, lo + lpad)
-        so = slice(off, off + lpad)
-        off += lpad
-        sl_v = Cv[sl]
-        vC = _take(Cv, srcC[sl])            # placeholders of dirty parents
-        v = torch.where(ispl[sl] & pd[sl], vC, sl_v)
-        key = torch.where(elmask[sl], v, BIG)
-        _, sv = _sort2(sortn[so], key)
-        Cv = _set_drop(Cv, dst[so], sv)
-    return _set_drop(F, destF, Cv).reshape(S, G)
+    val_np_provider(rowf int64) -> (values, codes) numpy: the decode's val
+    channel and row codes at flat rows (fixup_provider)."""
+    dev = tabs["deg"].device
+    order = mc["order_np"].astype(np.int64)
+    nodes, srcs = np.zeros((0, 5), np.int32), np.zeros(0, np.int32)
+    if len(order):
+        G = tabs["codes"].shape[1]
+        deg = trace.fetch(tabs["deg"]).astype(np.int64)
+        startsF = (trace.fetch(tabs["start_el"]).astype(np.int64) * G
+                   + np.asarray(lane_of_np, np.int64))
+        # every row of each dirty node's span, in fixup order
+        ln = trace.fetch(tabs["span"]).astype(np.int64)[order]
+        ordl = np.repeat(np.arange(len(order)), ln)
+        k = np.arange(len(ordl)) - np.repeat(np.cumsum(ln) - ln, ln)
+        rowf = startsF[order][ordl] + k * G
+        vals, codes = val_np_provider(rowf)
+        nodes, srcs = _node_layout(mc, deg, startsF, G, order, ordl, rowf,
+                                   vals, codes)
+    mc["fx_nodes"] = trace.upload(np.ascontiguousarray(nodes, np.int32), dev)
+    mc["fx_srcs"] = trace.upload(np.ascontiguousarray(srcs, np.int32), dev)
 
 
 # post_steady's cached-layout arguments, in order, as postprocess keys
@@ -469,95 +280,61 @@ def post_steady(val, xch, lane_of, mrow, kind, starts_flat, fx_nodes,
     return val, starts_flat, deg
 
 
+def _dirty_chains(mc: dict, tabs: dict, n: int):
+    """Each node's parent and dirty-chain depth ("parent", "ddep"; clean
+    0, dirty 1 + the depth of its maybe dirty parent, a dirty node without
+    a reference 1), the deepest chain ("rounds") and the dirty nodes in
+    (chain depth, node) order ("order_np"), the order the fixup resolves
+    them in. Raises RuntimeError past MAX_DIRTY_DEPTH."""
+    kind = trace.fetch(tabs["kind"])
+    ref = trace.fetch(tabs["ref"])
+    parent = np.maximum(np.arange(n) - ref, 0)
+    dirty = kind == 1
+    hasref = ref > 0
+    ddep = np.where(dirty, 1, 0).astype(np.int32)
+    for _ in range(4096):
+        upd = dirty & hasref & (ddep <= ddep[parent])
+        if not upd.any():
+            break
+        ddep = np.where(upd, ddep[parent] + 1, ddep)
+    else:
+        raise RuntimeError("dirty chains deeper than 4096")
+    depth = int(ddep.max())
+    if depth > MAX_DIRTY_DEPTH:
+        raise RuntimeError(f"dirty chains {depth} rounds deep "
+                           f"(fixup supports <= {MAX_DIRTY_DEPTH})")
+    didx = np.nonzero(dirty)[0]
+    dd_sort = np.argsort(ddep[didx] * (n + 1.0) + didx, kind="stable")
+    mc.update(parent=parent.astype(np.int32), ddep=ddep, rounds=depth,
+              order_np=didx[dd_sort].astype(np.int32))
+
+
 def postprocess(val, xch, nib, lane_of_np, lane_starts_np, n: int,
                 meta_cache: dict | None = None):
     """Full post-pass: channels -> (succs2d int32, starts_flat, degs,
-    tabs). meta_cache (mutated) keeps the dirty-chain layout and, for the
-    steady state, the marker layout and the fixup index cache."""
-    dev = val.device
+    tabs). The fixup (emit_fixup over the node layout, as in post_steady)
+    patches val in place: succs2d is val. meta_cache (mutated) keeps what
+    the plan's first call finds: the dirty chains, the node layout and the
+    steady state's marker layout (STEADY_KEYS); later calls reuse them.
+    Raises RuntimeError where the fixup cannot take the dirty chains."""
     mc = meta_cache if meta_cache is not None else {}
-    if "order_d" in mc:
-        return _post_fused(val, xch, nib, mc["lane_of_d"], mc["order_d"],
-                           mc["cpos_d"], mc["pdirty_d"], mc["parent_d"], n,
-                           mc["roffs"], mc["Dall"])
-    lane_of = trace.upload(np.ascontiguousarray(lane_of_np, np.int32), dev)
+    first = "fx_nodes" not in mc
+    if first:
+        mc["lane_of_d"] = trace.upload(
+            np.ascontiguousarray(lane_of_np, np.int32), val.device)
+    lane_of = mc["lane_of_d"]
     tabs = extract_node_tables(val, xch, nib, lane_of, n)
-    if "ddep" not in mc:
-        kind = trace.fetch(tabs["kind"])
-        ref = trace.fetch(tabs["ref"])
-        span = trace.fetch(tabs["span"])
-        parent = np.maximum(np.arange(n) - ref, 0)
-        dirty = kind == 1
-        hasref = ref > 0
-        # dirty-chain depth: clean 0; dirty 1 + the depth of its (maybe
-        # dirty) parent; a dirty node without a reference has depth 1
-        ddep = np.where(dirty, 1, 0).astype(np.int32)
-        for _ in range(4096):
-            upd = dirty & hasref & (ddep <= ddep[parent])
-            if not upd.any():
-                break
-            ddep = np.where(upd, ddep[parent] + 1, ddep)
-        else:
-            raise RuntimeError("dirty chains deeper than 4096")
-        if int(ddep.max()) > 192:
-            # each chain level is one fixup round
-            raise RuntimeError(
-                f"dirty chains {int(ddep.max())} rounds deep "
-                "(fixup supports <= 192)")
-        mc["ddep"] = ddep
-        mc["parent"] = parent.astype(np.int32)
-        mc["rounds"] = int(ddep.max())
-        # compact-fixup layout: dirty nodes in (chain depth, node) order
-        didx = np.nonzero(dirty)[0]
-        dd_sort = np.argsort(ddep[didx] * (n + 1.0) + didx, kind="stable")
-        order = didx[dd_sort].astype(np.int32)
-        spans_o = span[order].astype(np.int64)
-        obase = np.concatenate([[0], np.cumsum(spans_o)])
-        cpos = np.full(n, 0, np.int32)
-        cpos[order] = obase[:-1].astype(np.int32)
-        roffs = []
-        lo = 0
-        hi_need = 1
-        for r in range(1, mc["rounds"] + 1):
-            tlen = int(spans_o[ddep[order] == r].sum())
-            lpad = _quant(tlen + 1)
-            roffs.append((lo, lpad, tlen))
-            hi_need = max(hi_need, lo + lpad)
-            lo += tlen
-        # Dall covers every padded slice
-        mc["Dall"] = _quant(max(lo, hi_need) + 1)
-        mc["roffs"] = tuple(roffs)
-        mc["order_np"] = order
-        mc["cpos_np"] = cpos
-        mc["pdirty_np"] = dirty
-    mc["lane_of_d"] = lane_of
-    mc["parent_d"] = trace.upload(mc["parent"], dev)
-    order_p = np.full(max(len(mc["order_np"]), 1), -1, np.int32)
-    order_p[:len(mc["order_np"])] = mc["order_np"]
-    mc["order_d"] = trace.upload(order_p, dev)
-    mc["cpos_d"] = trace.upload(mc["cpos_np"], dev)
-    mc["pdirty_d"] = trace.upload(mc["pdirty_np"], dev)
-    # marker layout for the steady state: rows, kinds and starts of a
-    # deterministic kernel on a fixed artifact (values and degrees are
-    # decoded again on every call)
-    S, G = val.shape
-    mc["mrow_d"] = tabs["mrow"]
-    mc["kind_d"] = tabs["kind"]
-    mc["starts_flat_d"] = tabs["start_el"] * G + lane_of
-    if mc["roffs"] and "fx_offs" not in mc:
-        mc["span_np"] = trace.fetch(tabs["span"]).astype(np.int64)
-        mc["start_el_np"] = trace.fetch(tabs["start_el"]).astype(np.int64)
-        mc["deg_np"] = trace.fetch(tabs["deg"]).astype(np.int64)
-        mc["lane_of_np"] = np.asarray(lane_of_np).astype(np.int64)
-        mc["G"], mc["SG"] = G, S * G
-        build_fixup_cache(mc, fixup_provider(val, nib), dev)
-    elif "fx_offs" not in mc:
-        mc["fx_offs"] = ()
-        mc["fx_nodes"] = torch.zeros((0, 5), dtype=I32, device=dev)
-        mc["fx_srcs"] = torch.zeros(0, dtype=I32, device=dev)
-    return _post_fused(val, xch, nib, lane_of, mc["order_d"], mc["cpos_d"],
-                       mc["pdirty_d"], mc["parent_d"], n, mc["roffs"],
-                       mc["Dall"])
+    if first:
+        _dirty_chains(mc, tabs, n)
+        # the marker layout: rows, kinds and starts of a deterministic
+        # kernel on a fixed artifact (values and degrees are decoded again
+        # on every call)
+        mc.update(mrow_d=tabs["mrow"], kind_d=tabs["kind"],
+                  starts_flat_d=tabs["start_el"] * val.shape[1] + lane_of)
+        build_fixup_cache(mc, tabs, lane_of_np, fixup_provider(val, nib))
+    if mc["fx_nodes"].shape[0]:
+        val = emit_fixup(val, mc["fx_nodes"], mc["fx_srcs"])
+    return val, mc["starts_flat_d"], tabs["deg"], tabs
 
 
 def to_host_lists(succs2d, starts_flat, degs, n: int):

@@ -1,22 +1,22 @@
-"""CUDA steady-state dirty-chain fixup (csrc/emit_fixup.cu), its plain
-PyTorch version and the dispatching wrapper.
+"""CUDA dirty-chain fixup of the merged-emit post-pass (csrc/emit_fixup.cu),
+its plain PyTorch version and the dispatching wrapper.
 
 The fixup finishes the nodes that the merged-emit kernel left dirty: each
 gets its elements (its own rows, placeholders resolved from its parent's
-list) sorted into its rows of the [S, G] channel, patched in place. The
-kernel replaces no
-TPU kernel: the JAX package's fixup is XLA (its post_steady: a gather, a
-sort and a scatter a chain level, which ops/emit_post.py _fixup_steady
-transcribes as the reference the tests hold both versions to). It runs
-every chain in one launch: a block takes
-a path and follows it, each node reading its parent's list from shared
-memory; a path's first node waits on its parent's ready flag. It is
-built with nvcc for sm_90a into `webgraph_ans_torch/build/` on first use
-and loaded with ctypes.
+list) sorted into its rows of the [S, G] channel, patched in place. Every
+post-pass call runs it: the planning calls (emit_post.postprocess) and the
+steady state (emit_post.post_steady). The kernel replaces no TPU kernel:
+the JAX package's fixup is XLA (its post_steady: a gather, a sort and a
+scatter a chain level), the reference the plain version is held to on the
+CPU; the kernel is held to the plain version on the card. It runs every
+chain in one launch: a block takes a path and follows it, each node
+reading its parent's list from shared memory; a path's first node waits
+on its parent's ready flag. It is built with nvcc for sm_90a into
+`webgraph_ans_torch/build/` on first use and loaded with ctypes.
 
-The node layout (emit_post.build_fixup_cache, from the verified first
-decode) cuts the dirty nodes that read a dirty parent's list into paths,
-each following a node's child of the deepest subtree:
+The node layout (emit_post.build_fixup_cache, from a plan's first decode)
+cuts the dirty nodes that read a dirty parent's list into paths, each
+following a node's child of the deepest subtree:
 
 - nodes [nd, 5] int32, a path's rows one after another, the paths in the
   order of their first nodes' (chain depth, node): element base, degree,

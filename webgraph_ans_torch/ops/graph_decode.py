@@ -14,7 +14,6 @@ absolute 64-bit word indices, so a lane may span any part of the stream.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import logging
@@ -568,23 +567,20 @@ class TorchGraphDecoder:
                 [[0], np.asarray(blocks[0], np.int64), [n]]))
             pl["bounds"] = (bounds[:-1].copy(), bounds[1:].copy())
             return pl["bounds"]
-        safe = pl.get("safe_np")
         offs = np.concatenate([[0], np.cumsum(degs, dtype=np.int64)])
         nw = pl.get("node_work")
         if nw is not None:
             work = np.concatenate([[0.0], np.cumsum(nw)])
         else:
             work = offs + 2.0 * np.arange(n + 1)
-        # halo re-decode cost per boundary (a halo is used only without
-        # safe boundaries; see _emit_plan)
-        Hsp = 4 * self.window if (self.phase_step == 1 and self.window > 0
-                                  and safe is None) else 0
-        halo_el = offs - offs[np.maximum(np.arange(n + 1) - Hsp, 0)]
+        # halo re-decode cost per boundary
+        H = self._halo(pl)
+        halo_el = offs - offs[np.maximum(np.arange(n + 1) - H, 0)]
         cost = np.diff(work)
         halo = halo_el.astype(np.float64)
 
         def split(target):
-            return emit_split(cost, halo, safe, num_lanes,
+            return emit_split(cost, halo, pl.get("safe_np"), num_lanes,
                               self.window <= 12, target)
 
         lo = float(work[-1]) / num_lanes
@@ -610,6 +606,17 @@ class TorchGraphDecoder:
         pl["bounds"] = (starts, ends)
         return starts, ends
 
+    def _halo(self, pl: dict) -> int:
+        """The nodes a lane of plan pl decodes ahead of its start, so that
+        the reference chains of its first real nodes resolve in the lane
+        (halo rows feed the ring but are never marked): 4*window; none on
+        lanes split at reference-safe nodes, across encode blocks and on
+        sampled artifacts (a lane starts at an entry)."""
+        if (self.phase_step == 1 and self.graph.prelude.blocks is None
+                and self.window > 0 and pl.get("safe_np") is None):
+            return 4 * self.window
+        return 0
+
     def _emit_plan(self, num_lanes: int) -> dict:
         """Plan for decode_emit: lane bounds, halo starts, the register
         file and entry pointers on the device, the ring depth T and the
@@ -622,17 +629,8 @@ class TorchGraphDecoder:
         rstarts = np.asarray(rstarts, np.int64)
         ends = np.asarray(ends, np.int64)
         W, n, dev = self.window, self.num_nodes, self.device
-        # halo: decode 4*window nodes ahead of each lane so reference
-        # chains of its first real nodes resolve in the lane (halo rows
-        # feed the ring but are never marked); impossible across encode
-        # blocks and on sampled artifacts (a lane starts at an entry)
-        if (self.phase_step == 1 and self.graph.prelude.blocks is None
-                and W > 0 and pl.get("safe_np") is None):
-            H = 4 * W
-        else:
-            H = 0
         starts = np.where(rstarts >= ends, rstarts,
-                          np.maximum(rstarts - H, 0))
+                          np.maximum(rstarts - self._halo(pl), 0))
         if W > 0 and self.phase_step > 1:
             ring = trace.upload(self._rings_via_native(starts, W), dev)
         elif W > 0:
@@ -859,6 +857,13 @@ class TorchGraphDecoder:
         with trace.span("decode", lanes=num_lanes):
             return self._adjacency_device(num_lanes, launch)
 
+    def emit_steady(self, num_lanes: int) -> bool:
+        """Whether the merged-emit plan at num_lanes is in its steady state:
+        verified, and not sent to the sort path. Its calls then run the
+        kernel in mark_deg mode and the cached-layout post-pass."""
+        pl = self._plans.get(("emit", num_lanes), {})
+        return bool(pl.get("verified")) and not pl.get("emit_broken")
+
     def _adjacency_device(self, num_lanes: int, launch):
         pl = self._plans.setdefault(("emit", num_lanes), {})
         if launch is not None and (pl.get("emit_broken")
@@ -870,14 +875,12 @@ class TorchGraphDecoder:
                                    f"window {self.window} > {MAX_WINDOW}")
         if pl.get("emit_broken"):
             return self._adjacency_via_sort_path(num_lanes)
-        if pl.get("verified") and "fx_offs" in (pl.get("post_meta") or {}):
+        if self.emit_steady(num_lanes):
             if launch is None and pl["regs"].device.type == "cuda":
                 return self._steady_graph(pl)
             with trace.span("decode.steady"):
                 return self._steady(pl, launch)
-        if pl.get("verified"):
-            step = contextlib.nullcontext()
-        elif "degs_np" not in pl:
+        if "degs_np" not in pl:
             step = trace.stage("plan.first", lanes=num_lanes)
         elif "node_work" not in pl:
             step = trace.stage("plan.bounds", lanes=num_lanes)
@@ -895,7 +898,8 @@ class TorchGraphDecoder:
             with trace.stage("plan.safe") as stage:
                 pl["degs_np"] = trace.fetch(degs)
                 try:
-                    pl["safe_np"] = self._safe_boundaries()
+                    if pl.get("safe_np") is None:   # else the first call's
+                        pl["safe_np"] = self._safe_boundaries()
                     stage.set(safe_nodes=int(pl["safe_np"].sum()))
                 except LayoutTooLarge:
                     raise
@@ -927,7 +931,7 @@ class TorchGraphDecoder:
                       "rows_np"):
                 pl.pop(k, None)
             return self._adjacency_device(num_lanes, launch)
-        elif not pl.get("verified"):
+        else:
             pl["verified"] = True
             # the steady layout this plan keeps, on its plan.verify stage
             mc = pl["post_meta"]
@@ -938,12 +942,11 @@ class TorchGraphDecoder:
         return succs2d, starts_flat, degs
 
     def _emit_call(self, pl: dict, num_lanes: int, launch):
-        """A planning call's kernel (with its cap loop until the plan is
-        verified) and full post-pass: (succs2d, starts_flat, degs), or the
-        cause (a str) for which the sort path serves the plan."""
+        """A planning call's kernel (with its cap loop) and full post-pass:
+        (succs2d, starts_flat, degs), or the cause (a str) for which the
+        sort path serves the plan."""
         try:
-            val, xch, nib, _ = self.decode_emit_raw(
-                num_lanes, check=not pl.get("verified"), launch=launch)
+            val, xch, nib, _ = self.decode_emit_raw(num_lanes, launch=launch)
         except EmitPlanUnsupported as e:
             if launch is not None:
                 raise
