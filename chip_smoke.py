@@ -1778,7 +1778,9 @@ def hc_safe_break_phase(adj, runs: PathRuns, smi: str, tmp: str) -> dict:
     call list for list; fails if the sort path served (emit_broken) or
     decode_emit never launched. Prints the planner's safe set beside the
     one the chain roots give (converged_safe_nodes) and the passes those
-    took, fails if the planner marks a node safe that a chain crosses, and
+    took, and the verified plan's cap, its longest and mean lane's rows
+    (the lanes closed at the last safe node within the split's target);
+    fails if the planner marks a node safe that a chain crosses, and
     returns decode_emit's time, bound and plain hold on the verified
     plan."""
     from webgraph_ans_torch import ANSBvGraph, TorchGraphDecoder, store
@@ -1819,7 +1821,8 @@ def hc_safe_break_phase(adj, runs: PathRuns, smi: str, tmp: str) -> dict:
             lanes=HC_LANES, cold_seconds=[c["seconds"] for c in calls],
             calls=calls, steady=steady,
             steady_ns_per_arc=steady["device_ms"]["median"] * 1e6 / arcs,
-            T=pl["T"], cap=pl["cap"],
+            T=pl["T"], cap=pl["cap"], rows_max=int(pl["rows_np"].max()),
+            rows_mean=float(pl["rows_np"].mean()),
             empty_lanes=int(np.sum(pl["starts_np"] >= pl["ends_np"])),
             dirty_nodes=len(pl["post_meta"]["order_np"]),
             emit_broken=pl.get("emit_broken"), safe_boundaries=safe,

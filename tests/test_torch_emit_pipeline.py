@@ -29,6 +29,7 @@ from webgraph_ans_torch.ops import (emit_cuda, emit_post, emit_torch,
                                     graph_decode, reconstruct_device)
 from webgraph_ans_torch.ops.cuda_build import KernelError
 from webgraph_ans_torch.ops.graph_decode import TorchGraphDecoder
+from webgraph_ans_torch.utils import trace
 import jax_native_build
 
 # the JAX package's native library, built once before any test loads it
@@ -145,7 +146,16 @@ def test_emit_planner_matches_jax(artifacts, name, xla_decoder):
     block-delimited range with no bisection, while the JAX planner
     bisects and snaps its bounds to the block starts, padding the same
     lanes with empty ones. So the port's plan is the JAX plan without its
-    empty lanes, and its lists are the input graph's."""
+    empty lanes, and its lists are the input graph's.
+
+    On the window-16 artifact too: past window 12 every cut is at a safe
+    node, and the port closes each lane at the last safe node that keeps
+    it within the bisected target (emit_split_last), where the JAX
+    planner's greedy split lets a lane run past its target to the next
+    safe node. So the port's rebalanced and refined plans differ from the
+    JAX plans: their longest lane costs no more than the JAX plan's, no
+    lane is empty, every bound is a safe node, and the lists are the
+    input graph's."""
     adj, base = artifacts[name]
     blocks = ARTIFACTS[name][2].get("encode_blocks", 1) > 1
     jdec = TpuGraphDecoder(JaxGraph.load(base))
@@ -159,16 +169,42 @@ def test_emit_planner_matches_jax(artifacts, name, xla_decoder):
             safe_np=safe)
     _replan(tdec, ("regs", "cap", "bounds"), degs_np=degs,
             safe_np=safe.copy())
-    _check_plans(jdec, tdec, drop_empty=blocks)
-    if blocks:
-        _plan_lists(adj, tdec)
+    offs = np.concatenate([[0], np.cumsum(degs, dtype=np.int64)])
+    _compare_rebalanced(jdec, tdec, adj, blocks, safe,
+                        np.diff(offs + 2.0 * np.arange(len(offs))))
 
     work = degs.astype(np.float64) + 2.5 + (np.arange(len(degs)) % 3)
     _replan(jdec, ("init", "slab", "cap", "bounds"), node_work=work)
     _replan(tdec, ("regs", "cap", "bounds"), node_work=work.copy())
-    _check_plans(jdec, tdec, drop_empty=blocks)
-    if blocks:
-        _plan_lists(adj, tdec)
+    _compare_rebalanced(jdec, tdec, adj, blocks, safe,
+                        np.diff(np.concatenate([[0.0], np.cumsum(work)])))
+
+
+def _compare_rebalanced(jdec, tdec, adj, blocks, safe, cost):
+    """A rebalanced plan of both packages: equal, the port's without the
+    JAX plan's empty lanes on block artifacts, or past window 12 through
+    the lists, with the port's longest lane (in the split's cost) no
+    longer than the JAX plan's, no empty lane and every bound safe."""
+    if tdec.window <= 12:
+        _check_plans(jdec, tdec, drop_empty=blocks)
+        if blocks:
+            _plan_lists(adj, tdec)
+        return
+    jpl, _ = _summary_jax(jdec)
+    tpl = tdec._emit_plan(LANES)
+    n = adj.num_nodes
+    halo = np.zeros(n + 1)
+    got = graph_decode.lane_costs(
+        cost, halo, np.append(tpl["starts_np"], tpl["ends_np"][-1]))
+    want = graph_decode.lane_costs(
+        cost, halo, np.append(jpl["starts_np"], jpl["ends_np"][-1]))
+    assert got.max() <= want.max()
+    assert (tpl["starts_np"] < tpl["ends_np"]).all()
+    np.testing.assert_array_equal(tpl["starts_np"][1:], tpl["ends_np"][:-1])
+    inner = tpl["starts_np"][1:]
+    assert safe[inner].all() and tpl["starts_np"][0] == 0
+    assert tpl["ends_np"][-1] == n
+    _plan_lists(adj, tdec)
 
 
 def _split_spec(cost, halo, safe, num_lanes, force_unsafe, target):
@@ -197,10 +233,9 @@ def _split_spec(cost, halo, safe, num_lanes, force_unsafe, target):
 
 def _split_case(seed, refined, masked, halo_on):
     """Planner inputs of a seeded 600-node graph: integer costs (elements
-    + 2 a node) or refined ones (each of 40 lanes' observed extra rows
-    spread over its nodes, as the refinement does); a safe mask with long
-    unsafe stretches, or none; the halo sums of a window-7 halo, or
-    zeros."""
+    + 2 a node) or fractional ones (each of 40 spans' extra rows spread
+    over its nodes); a safe mask with long unsafe stretches, or none; the
+    halo sums of a window-7 halo, or zeros."""
     rng = np.random.default_rng(seed)
     n = 600
     degs = np.minimum(rng.zipf(1.6, n), 400).astype(np.int64)
@@ -210,7 +245,7 @@ def _split_case(seed, refined, masked, halo_on):
         nw = degs.astype(np.float64)
         cuts = np.unique(np.concatenate([[0, n], rng.integers(0, n, 40)]))
         for a, b in zip(cuts[:-1], cuts[1:]):
-            # the refinement's form: a lane's extra rows over its nodes
+            # a span's extra rows over its nodes
             nw[a:b] += float(rng.integers(0, 7 * (b - a) + 1)) / (b - a)
         work = np.concatenate([[0.0], np.cumsum(nw)])
     else:
@@ -264,6 +299,166 @@ def test_emit_split_matches_scalar_loop(refined, masked, halo_on,
                 assert got is not None, (lanes, t)
                 np.testing.assert_array_equal(got, want,
                                               err_msg=f"{lanes} {t}")
+
+
+def _cuts(safe, n):
+    """The nodes a lane may start at (0 and the safe nodes) and end at
+    (the safe nodes and n), in order: 0, the safe nodes past 0, n."""
+    inner = (np.arange(1, n) if safe is None
+             else np.flatnonzero(np.asarray(safe)[1:]) + 1)
+    return np.concatenate([[0], inner, [n]]).astype(np.int64)
+
+
+def _sums(cost, halo):
+    """sum(a, b): a lane [a, b)'s sum in emit_split_last's arithmetic."""
+    P = np.concatenate([[0.0], np.cumsum(cost)])
+    return lambda a, b: halo[a] + (P[b] - P[a])
+
+
+def _fewest_lanes(cost, halo, safe, target):
+    """The fewest lanes of any split at safe nodes whose every lane sum is
+    within target (inf where none is), over every pair of cuts."""
+    cuts, lane = _cuts(safe, len(cost)), _sums(cost, halo)
+    dp = np.full(len(cuts), np.inf)
+    dp[0] = 0
+    for j in range(1, len(cuts)):
+        fit = lane(cuts[:j], cuts[j]) <= target
+        if fit.any():
+            dp[j] = dp[:j][fit].min() + 1
+    return dp[-1]
+
+
+def _min_max(cost, halo, safe, lanes):
+    """The least longest lane of any split at safe nodes into at most
+    `lanes` lanes: dynamic programming over every pair of cuts."""
+    cuts, lane = _cuts(safe, len(cost)), _sums(cost, halo)
+    best = np.full(len(cuts), np.inf)
+    best[0] = 0.0
+    least = np.inf
+    for _ in range(lanes):
+        nxt = np.full(len(cuts), np.inf)
+        for j in range(1, len(cuts)):
+            nxt[j] = np.maximum(best[:j], lane(cuts[:j], cuts[j])).min()
+        best = nxt
+        least = min(least, best[-1])
+    return least
+
+
+def _bisected(split, cost, halo, degs, lanes):
+    """The planner's bisection of a split's target (its lo and hi)."""
+    lo = float(np.sum(cost)) / lanes
+    hi = lo * 8 + float(np.max(degs) + halo.max()) + 4096
+    return graph_decode.min_max_split(split, lo, hi)
+
+
+SPLIT_CASES = [(r, m, h) for r in (False, True) for m in (False, True)
+               for h in (False, True)]
+
+
+@pytest.mark.parametrize("refined,masked,halo_on", SPLIT_CASES)
+def test_emit_split_last_closes_at_the_last_safe_node(refined, masked,
+                                                      halo_on):
+    """At every target of its own bisection, at integer targets and at
+    lane counts from 1 to more than the nodes: each lane of
+    emit_split_last stays within the target and ends at the last safe
+    node (or n) that keeps it there, the next cut would pass it, unused
+    lanes are empty at n; and it refuses exactly where no split at safe
+    nodes into that many lanes keeps every lane within the target."""
+    seed = 8 * refined + 4 * masked + 2 * halo_on
+    cost, halo, safe, work, degs = _split_case(seed, refined, masked,
+                                               halo_on)
+    n = len(cost)
+    cuts, lane = _cuts(safe, n), _sums(cost, halo)
+    fewest = {}
+    for lanes in (1, 2, 7, 64, n, n + 9):
+        targets = [0.0, 1.0, float(work[-1]), 1e300]
+        lo = float(work[-1]) / lanes
+        hi = lo * 8 + float(np.max(degs) + halo.max()) + 4096
+        for _ in range(40):
+            mid = (lo + hi) / 2
+            targets.append(mid)
+            if graph_decode.emit_split_last(cost, halo, safe, lanes,
+                                            mid) is None:
+                lo = mid
+            else:
+                hi = mid
+        targets += [hi, float(np.floor(hi)), float(np.ceil(hi)),
+                    float(np.floor(2 * hi / 3))]
+        for t in targets:
+            got = graph_decode.emit_split_last(cost, halo, safe, lanes, t)
+            if t not in fewest:
+                fewest[t] = _fewest_lanes(cost, halo, safe, t)
+            assert (got is None) == (fewest[t] > lanes), (lanes, t)
+            if got is None:
+                continue
+            assert len(got) == lanes + 1 and got[0] == 0
+            assert (np.diff(got) >= 0).all() and got[-1] == n
+            used = np.flatnonzero(got[1:] > got[:-1])
+            assert (got[used[-1] + 1:] == n).all()
+            for li in used:
+                a, b = got[li], got[li + 1]
+                assert b in cuts and lane(a, b) <= t, (lanes, t, li)
+                if b < n:
+                    nxt = cuts[np.searchsorted(cuts, b, side="right")]
+                    assert lane(a, nxt) > t, (lanes, t, li)
+
+
+@pytest.mark.parametrize("refined,masked,halo_on", SPLIT_CASES)
+def test_emit_split_last_bisected_is_min_max(refined, masked, halo_on):
+    """After the planner's bisection, emit_split_last's longest lane is
+    the least longest lane of any split at safe nodes (dynamic
+    programming over the cuts of the first 40 and 60 nodes, 1 to 6
+    lanes), to 1e-9 relative."""
+    seed = 8 * refined + 4 * masked + 2 * halo_on
+    cost, halo, safe, _, degs = _split_case(seed, refined, masked, halo_on)
+    for m in (40, 60):
+        c, h = cost[:m], halo[:m + 1]
+        sf = None if safe is None else safe[:m]
+        for lanes in range(1, 7):
+            _, bounds = _bisected(
+                lambda t: graph_decode.emit_split_last(c, h, sf, lanes, t),
+                c, h, degs, lanes)
+            got = graph_decode.lane_costs(c, h, bounds).max()
+            want = _min_max(c, h, sf, lanes)
+            assert got == pytest.approx(want, rel=1e-9), (m, lanes)
+
+
+@pytest.mark.parametrize("refined,masked,halo_on", SPLIT_CASES)
+def test_emit_split_last_no_longer_than_greedy(refined, masked, halo_on):
+    """Bisected as the planner bisects each, emit_split_last's longest
+    lane is never longer than the greedy emit_split's (cuts at safe nodes
+    only) at its own bisected target, and never passes its target."""
+    seed = 8 * refined + 4 * masked + 2 * halo_on
+    cost, halo, safe, _, degs = _split_case(seed, refined, masked, halo_on)
+    for lanes in (1, 2, 7, 16, 64):
+        t_last, last = _bisected(
+            lambda t: graph_decode.emit_split_last(cost, halo, safe, lanes,
+                                                   t),
+            cost, halo, degs, lanes)
+        _, greedy = _bisected(
+            lambda t: graph_decode.emit_split(cost, halo, safe, lanes, False,
+                                              t),
+            cost, halo, degs, lanes)
+        got = graph_decode.lane_costs(cost, halo, last).max()
+        assert got <= t_last
+        assert got <= graph_decode.lane_costs(cost, halo, greedy).max()
+
+
+def test_min_max_split_doubles_past_a_long_safe_gap():
+    """With no safe node past node 0 the one lane must hold every node,
+    past the planner's hi: the bisection doubles hi until the split gives
+    bounds, and converges on that lane's sum."""
+    cost, halo, _, work, degs = _split_case(0, False, False, False)
+    n, lanes = len(cost), 64
+    safe = np.zeros(n, bool)
+    safe[0] = True
+    lo = float(work[-1]) / lanes
+    assert lo * 8 + float(np.max(degs) + halo.max()) + 4096 < work[-1]
+    target, bounds = _bisected(
+        lambda t: graph_decode.emit_split_last(cost, halo, safe, lanes, t),
+        cost, halo, degs, lanes)
+    assert bounds[0] == 0 and (bounds[1:] == n).all()
+    assert target == pytest.approx(float(work[-1]), rel=1e-9)
 
 
 def test_block_plan_one_lane_per_block(artifacts, xla_decoder):
@@ -449,6 +644,127 @@ def test_pipeline_reaches_steady_state(artifacts, name, monkeypatch):
     assert fixups == (["cpu"] if pl["post_meta"]["fx_nodes"].shape[0]
                       else [])
     _assert_lists(adj, *out)
+
+
+@pytest.mark.parametrize("name,rule", [("w16_safe", "last_safe"),
+                                       ("serial", "greedy")])
+def test_split_rule_follows_the_window(artifacts, name, rule):
+    """A window-16 safe-break artifact and a window-7 one, driven into
+    the steady state: every call's lists are the input graph's; each of
+    the plan's splits records its rule ("last_safe" past window 12,
+    "greedy" up to it) and its longest and mean lane cost, the last-safe
+    split's longest lane within its target; plan.verify records the
+    longest and the mean lane's rows of its decode."""
+    adj, base = artifacts[name]
+    dec = TorchGraphDecoder(TorchGraph.load(base), device="cpu")
+    mark = max((s.id for s in trace.stages()), default=0)
+    for _ in range(3):
+        _assert_lists(adj, *dec.decode_to_adjacency_device(LANES))
+        if dec.emit_steady(LANES):
+            break
+    assert dec.emit_steady(LANES)
+    _assert_lists(adj, *dec.decode_to_adjacency_device(LANES))
+    stages = [s for s in trace.stages() if s.id > mark]
+    splits = [s for s in stages if s.name == "emit.split"]
+    assert [s.attrs["model"] for s in splits] == ["elements", "rows"]
+    for s in splits:
+        assert s.attrs["rule"] == rule
+        assert 0 < s.attrs["mean_cost"] <= s.attrs["max_cost"]
+        if rule == "last_safe":
+            assert s.attrs["max_cost"] <= s.attrs["target"]
+    pl = dec._plans[("emit", LANES)]
+    (verify,) = [s for s in stages if s.name == "plan.verify"]
+    assert verify.attrs["rows_max"] == int(pl["rows_np"].max())
+    assert verify.attrs["rows_mean"] == float(pl["rows_np"].mean())
+    assert verify.attrs["rows_max"] >= verify.attrs["rows_mean"] > 0
+
+
+NODE_ROWS_CASES = {
+    # two lanes [0, 3) and [3, 5), marker rows 1, 4, 9 and 2, 3, rows
+    # used 12 and 7; a lane's first node takes the rows before its marker
+    "two lanes": ([1, 4, 9, 2, 3], [0, 3], [3, 5], [12, 7],
+                  [4, 5, 3, 3, 4]),
+    # an empty lane between them is skipped
+    "empty lane": ([0, 2, 0], [0, 2, 2], [2, 2, 3], [5, 0, 6],
+                   [2, 3, 6]),
+}
+
+
+@pytest.mark.parametrize("case", list(NODE_ROWS_CASES))
+def test_node_rows_spreads_each_lane_by_its_markers(case):
+    mrow, starts, ends, rows, want = NODE_ROWS_CASES[case]
+    got = graph_decode.node_rows(np.array(mrow), np.array(starts),
+                                 np.array(ends), np.array(rows))
+    np.testing.assert_array_equal(got, np.array(want, np.float64))
+
+
+def _spread_loop(degs, starts, ends, rows):
+    """The even spread as the JAX planner's refinement writes it, lane by
+    lane."""
+    degs = np.asarray(degs, np.float64)
+    offs = np.concatenate([[0], np.cumsum(degs)])
+    nw = degs.copy()
+    for li in range(len(starts)):
+        a, b = int(starts[li]), int(ends[li])
+        if b > a:
+            extra = max(rows[li] - (offs[b] - offs[a]), 0.0)
+            nw[a:b] += extra / (b - a)
+    return nw
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_spread_rows_matches_the_lane_loop(seed):
+    """spread_rows gives the JAX refinement's even spread bit for bit:
+    contiguous lanes, empty lanes at n and inside the split, lanes whose
+    rows fall short of their elements (no share)."""
+    rng = np.random.default_rng(seed)
+    n = 500
+    degs = np.minimum(rng.zipf(1.6, n), 300).astype(np.int32)
+    cuts = np.sort(np.concatenate([[0, n, n], rng.integers(0, n, 30)]))
+    starts, ends = cuts[:-1], cuts[1:]
+    offs = np.concatenate([[0], np.cumsum(degs, dtype=np.int64)])
+    rows = (offs[ends] - offs[starts]
+            + rng.integers(-5, 9 * (ends - starts) + 1)).astype(np.int32)
+    rows[ends <= starts] = 0
+    np.testing.assert_array_equal(
+        graph_decode.spread_rows(degs, starts, ends, rows),
+        _spread_loop(degs, starts, ends, rows))
+
+
+@pytest.mark.parametrize("name", list(ARTIFACTS))
+def test_refined_node_rows_sum_to_the_lanes_rows(artifacts, monkeypatch,
+                                                 name):
+    """The refinement prices nodes by the split's rule: on last_safe plans
+    each node's rows from the marker rows of the split's decode
+    (node_rows), on greedy ones each lane's rows spread evenly over its
+    nodes (spread_rows). Either way no node is negative and each lane's
+    nodes sum to its observed rows."""
+    adj, base = artifacts[name]
+    seen = []
+
+    def keep(fn):
+        def run(*args):
+            nw = fn(*args)
+            seen.append((fn.__name__, *(np.copy(x) for x in args[1:]), nw))
+            return nw
+        return run
+
+    for fn in (graph_decode.node_rows, graph_decode.spread_rows):
+        monkeypatch.setattr(graph_decode, fn.__name__, keep(fn))
+    dec = TorchGraphDecoder(TorchGraph.load(base), device="cpu")
+    for _ in range(2):
+        _assert_lists(adj, *dec.decode_to_adjacency_device(LANES))
+    assert dec.emit_steady(LANES)
+    (fn, starts, ends, rows, nw), = seen
+    assert fn == {"last_safe": "node_rows",
+                  "greedy": "spread_rows"}[dec._split_rule()]
+    assert (nw >= 0).all() and len(nw) == adj.num_nodes
+    P = np.concatenate([[0.0], np.cumsum(nw)])
+    np.testing.assert_allclose(P[ends] - P[starts],
+                               np.where(ends > starts, rows, 0),
+                               rtol=1e-12, atol=1e-9)
+    np.testing.assert_array_equal(dec._plans[("emit", LANES)]["node_work"],
+                                  nw)
 
 
 def test_emit_steady_follows_the_plan(artifacts, tmp_path, caplog):

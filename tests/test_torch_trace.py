@@ -201,8 +201,9 @@ def test_hc_store_decodes_to_the_plain_lists(hc_decoder):
 def test_verify_stage_records_the_steady_layout(case, request):
     """plan.verify keeps the layout it verified: the fixup's rounds and
     dirty nodes from the post-pass's cache, the empty lanes and all lanes
-    from the plan; plan.safe keeps its safe nodes. The high-compression
-    graph's steady state has dirty chains to fix up."""
+    from the plan, the longest and the mean lane's rows from its decode;
+    plan.safe keeps its safe nodes. The high-compression graph's steady
+    state has dirty chains to fix up."""
     if case == "hc":
         dec, _, stages = request.getfixturevalue("hc_decoder")
         lanes = HC_LANES
@@ -216,7 +217,9 @@ def test_verify_stage_records_the_steady_layout(case, request):
     assert verify.attrs == {
         "lanes": len(pl["starts_np"]), "fixup_rounds": mc["rounds"],
         "dirty_nodes": len(mc["order_np"]),
-        "empty_lanes": int((pl["starts_np"] >= pl["ends_np"]).sum())}
+        "empty_lanes": int((pl["starts_np"] >= pl["ends_np"]).sum()),
+        "rows_max": int(pl["rows_np"].max()),
+        "rows_mean": float(pl["rows_np"].mean())}
     assert verify.attrs["lanes"] == pl["regs"].shape[1] == lanes
     assert 0 <= verify.attrs["empty_lanes"] < verify.attrs["lanes"]
     assert safe.attrs == {"safe_nodes": int(pl["safe_np"].sum())}

@@ -928,6 +928,44 @@ int32_t wgt_emit_split(const double* cost, const double* halo,
   for (; nb <= num_lanes; ++nb) bounds[nb] = static_cast<int64_t>(n);
   return 1;
 }
+
+// The split of plans that cut only at safe nodes: a lane that starts at
+// a has sum halo[a] + (P[b] - P[a]), P the sequential prefix sums of cost
+// (P[0] = 0), and ends at the largest safe b > a whose sum stays within
+// `target`, or at n. The sum grows with b, so each lane walks from its
+// start until the sum passes target and closes at the last safe node
+// before that; the next lane walks on from there (P carried exactly).
+// Writes num_lanes + 1 bounds (the unused lanes empty at n) and returns
+// 1; returns 0 when a lane has no such b or the nodes need more than
+// num_lanes lanes at this target.
+int32_t wgt_emit_split_last(const double* cost, const double* halo,
+                            const uint8_t* safe, uint64_t n,
+                            uint64_t num_lanes, double target,
+                            int64_t* bounds) {
+  uint64_t nb = 1, a = 0;
+  double pa = 0.0;
+  bounds[0] = 0;
+  while (a < n) {
+    if (nb > num_lanes) return 0;
+    const double base = halo[a];
+    uint64_t last = a;
+    double p = pa, plast = pa;
+    for (uint64_t x = a; x < n; ++x) {
+      p += cost[x];
+      if (base + (p - pa) > target) break;
+      if (x + 1 == n || safe == nullptr || safe[x + 1]) {
+        last = x + 1;
+        plast = p;
+      }
+    }
+    if (last == a) return 0;
+    bounds[nb++] = static_cast<int64_t>(last);
+    a = last;
+    pa = plast;
+  }
+  for (; nb <= num_lanes; ++nb) bounds[nb] = static_cast<int64_t>(n);
+  return 1;
+}
 #pragma GCC pop_options
 
 // ---------------------------------------------------------------------------

@@ -85,6 +85,32 @@ def _pad_lanes(starts, ends, hi: int, pad_to: int):
     return starts.astype(np.int32), ends.astype(np.int32)
 
 
+def _native_split(fn: str, cost, halo, safe, num_lanes: int, *args):
+    """Runs the native split fn over cost [n] and halo [n + 1] (float64)
+    and safe [n] (bool, or None: every node safe), with its own args
+    after the lane count: the num_lanes + 1 lane bounds (int64), or None
+    where it refuses."""
+    cost = np.ascontiguousarray(cost, np.float64)
+    halo = np.ascontiguousarray(halo, np.float64)
+    n = len(cost)
+    if len(halo) != n + 1 or num_lanes < 1:
+        raise ValueError(f"{fn}: {n} costs need {n + 1} halo sums "
+                         f"(got {len(halo)}) and at least one lane")
+    safe_p = None
+    if safe is not None:
+        safe = np.ascontiguousarray(safe, np.uint8)
+        if len(safe) != n:
+            raise ValueError(f"{fn}: {n} costs need {n} safe flags "
+                             f"(got {len(safe)})")
+        safe_p = native.as_ptr(safe, ctypes.c_uint8)
+    bounds = np.empty(num_lanes + 1, np.int64)
+    fits = getattr(native.get_lib(), fn)(
+        native.as_ptr(cost, ctypes.c_double),
+        native.as_ptr(halo, ctypes.c_double), safe_p, n, num_lanes, *args,
+        native.as_ptr(bounds, ctypes.c_int64))
+    return bounds if fits else None
+
+
 def emit_split(cost: np.ndarray, halo: np.ndarray, safe, num_lanes: int,
                force_unsafe: bool, target: float):
     """The merged-emit planner's greedy split of n nodes into at most
@@ -95,26 +121,90 @@ def emit_split(cost: np.ndarray, halo: np.ndarray, safe, num_lanes: int,
     halo [n + 1] are float64, safe [n] bool or None (every node safe).
     Returns the num_lanes + 1 lane bounds (int64, the unused lanes empty
     at n), or None when the nodes need more lanes at this target."""
-    cost = np.ascontiguousarray(cost, np.float64)
-    halo = np.ascontiguousarray(halo, np.float64)
-    n = len(cost)
-    if len(halo) != n + 1 or num_lanes < 1:
-        raise ValueError(f"emit_split: {n} costs need {n + 1} halo sums "
-                         f"(got {len(halo)}) and at least one lane")
-    safe_p = None
-    if safe is not None:
-        safe = np.ascontiguousarray(safe, np.uint8)
-        if len(safe) != n:
-            raise ValueError(f"emit_split: {n} costs need {n} safe flags "
-                             f"(got {len(safe)})")
-        safe_p = native.as_ptr(safe, ctypes.c_uint8)
-    bounds = np.empty(num_lanes + 1, np.int64)
-    fits = native.get_lib().wgt_emit_split(
-        native.as_ptr(cost, ctypes.c_double),
-        native.as_ptr(halo, ctypes.c_double), safe_p, n, num_lanes,
-        int(bool(force_unsafe)), float(target),
-        native.as_ptr(bounds, ctypes.c_int64))
-    return bounds if fits else None
+    return _native_split("wgt_emit_split", cost, halo, safe, num_lanes,
+                         int(bool(force_unsafe)), float(target))
+
+
+def emit_split_last(cost: np.ndarray, halo: np.ndarray, safe,
+                    num_lanes: int, target: float):
+    """The split of plans that cut only at safe nodes, in the native
+    runtime (wgt_emit_split_last): a lane that starts at a has sum
+    halo[a] + (P[b] - P[a]), P = [0, cumsum(cost)] in float64, and ends at
+    the largest safe b > a at which that sum stays within target, or at
+    n. No lane passes target, so bisected on target (min_max_split) the
+    longest lane is the least of any split at safe nodes. Inputs as
+    emit_split's. Returns the num_lanes + 1 lane bounds (int64, the unused
+    lanes empty at n), or None when a lane has no such b or the nodes
+    need more lanes at this target."""
+    return _native_split("wgt_emit_split_last", cost, halo, safe,
+                         num_lanes, float(target))
+
+
+def min_max_split(split, lo: float, hi: float, steps: int = 40):
+    """(target, bounds): the least target at which split(target) gives
+    bounds, found by bisection between lo and hi to (hi - lo) / 2**steps,
+    and split(target). Where split gives none at hi (a gap between safe
+    nodes longer than hi), hi doubles first, lo taking its value."""
+    while split(hi) is None:
+        if not hi < np.inf:
+            raise ValueError("min_max_split: no target gives bounds")
+        lo, hi = hi, max(2 * hi, 1.0)
+    for _ in range(steps):
+        mid = (lo + hi) / 2
+        if split(mid) is None:
+            lo = mid
+        else:
+            hi = mid
+    return hi, split(hi)
+
+
+def lane_costs(cost: np.ndarray, halo: np.ndarray, bounds) -> np.ndarray:
+    """Each lane's sum in the splits' cost model, halo[a] + (P[b] - P[a])
+    for a lane [a, b), and 0 for an empty lane."""
+    P = np.concatenate([[0.0], np.cumsum(np.asarray(cost, np.float64))])
+    a, b = np.asarray(bounds[:-1]), np.asarray(bounds[1:])
+    return np.where(b > a, np.asarray(halo, np.float64)[a] + (P[b] - P[a]),
+                    0.0)
+
+
+def node_rows(mrow: np.ndarray, starts: np.ndarray, ends: np.ndarray,
+              rows: np.ndarray) -> np.ndarray:
+    """Each node's rows in a merged-emit decode of lanes [starts, ends),
+    from mrow [n], the row of each node's marker: the rows from its
+    marker to the next node's in its lane, or to the rows its lane used
+    (rows [L]) after the lane's last node; a lane's first node also takes
+    the rows before its marker (the lane's lead-in, and its halo's rows
+    where it has one). Each lane's nodes sum to its rows."""
+    mrow = np.asarray(mrow, np.float64)
+    starts, ends = np.asarray(starts), np.asarray(ends)
+    used = ends > starts
+    nxt = np.empty_like(mrow)
+    nxt[:-1] = mrow[1:]
+    nxt[ends[used] - 1] = np.asarray(rows, np.float64)[used]
+    nw = nxt - mrow
+    nw[starts[used]] += mrow[starts[used]]
+    return nw
+
+
+def spread_rows(degs: np.ndarray, starts: np.ndarray, ends: np.ndarray,
+                rows: np.ndarray) -> np.ndarray:
+    """Each node's rows with each lane's rows spread evenly: its elements
+    (degs [n]), plus the rows its lane of [starts, ends) used (rows [L])
+    past the lane's elements, shared alike by the lane's nodes."""
+    degs = np.asarray(degs, np.float64)
+    offs = np.concatenate([[0.0], np.cumsum(degs)])
+    starts, ends = np.asarray(starts), np.asarray(ends)
+    used = ends > starts
+    a, b = starts[used], ends[used]
+    extra = np.maximum(np.asarray(rows, np.float64)[used]
+                       - (offs[b] - offs[a]), 0.0) / (b - a)
+    # the nodes of the used lanes, lane by lane
+    length = b - a
+    idx = (np.arange(length.sum()) + np.repeat(a - (np.cumsum(length)
+                                                    - length), length))
+    nw = degs.copy()
+    nw[idx] += np.repeat(extra, length)
+    return nw
 
 
 def safe_nodes(parent: np.ndarray, has_ref: np.ndarray) -> np.ndarray:
@@ -518,14 +608,29 @@ class TorchGraphDecoder:
     # a copy source older than this many rows makes the node dirty (the
     # post-pass resolves it)
     EMIT_RING_T = 512
+    # up to this window a lane may also be cut at an unsafe node (the
+    # greedy split's forced cut; a 4*window halo re-decodes its chains);
+    # past it every cut is at a reference-safe node
+    FORCED_CUT_WINDOW = 12
+
+    def _split_rule(self) -> str:
+        """The merged-emit split's rule once degrees are known: "greedy"
+        (emit_split with its forced cut) up to FORCED_CUT_WINDOW, else
+        "last_safe" (emit_split_last). The refinement follows it: a
+        last_safe split holds every lane within its target, so it prices
+        each node by its own rows (node_rows); a greedy split spreads each
+        lane's rows evenly over its nodes (spread_rows), whose plan the
+        card decodes faster on cnr-2000 at the same longest lane."""
+        return "last_safe" if self.window > self.FORCED_CUT_WINDOW \
+            else "greedy"
 
     def _emit_bounds(self, num_lanes: int, key=None):
         """Lane bounds for the merged-emit kernel. First call: the
         stream-balanced block bounds. Once per-node degrees are known
         (cached from a decode): on block-encoded artifacts one lane per
         block-delimited range; otherwise a minmax split, the bisection of
-        emit_split's target over the kernel's step estimate (elements +
-        2*nodes, or the observed node_work)."""
+        the split's target over the kernel's step estimate (elements +
+        2*nodes, or the observed node_work) under `_split_rule`."""
         pl = self._plans.setdefault(key or ("emit", num_lanes), {})
         if "bounds" in pl:
             return pl["bounds"]
@@ -533,7 +638,7 @@ class TorchGraphDecoder:
         degs = pl.get("degs_np")
         if degs is None:
             starts, ends = self._block_bounds(num_lanes)
-            if (self.window > 12 and self.phase_step == 1
+            if (self.window > self.FORCED_CUT_WINDOW and self.phase_step == 1
                     and self.graph.prelude.blocks is None):
                 # deep unbounded reference chains: even the first decode
                 # splits at reference-safe nodes (a 4*window halo cannot
@@ -578,22 +683,21 @@ class TorchGraphDecoder:
         halo_el = offs - offs[np.maximum(np.arange(n + 1) - H, 0)]
         cost = np.diff(work)
         halo = halo_el.astype(np.float64)
-
-        def split(target):
-            return emit_split(cost, halo, pl.get("safe_np"), num_lanes,
-                              self.window <= 12, target)
-
+        safe = pl.get("safe_np")
+        rule = self._split_rule()
+        split = (functools.partial(emit_split_last, cost, halo, safe,
+                                   num_lanes) if rule == "last_safe" else
+                 functools.partial(emit_split, cost, halo, safe, num_lanes,
+                                   True))
         lo = float(work[-1]) / num_lanes
         hi = lo * 8 + float(np.max(degs, initial=0) + halo_el.max()) + 4096
         with trace.stage("emit.split", lanes=num_lanes,
-                         model="rows" if nw is not None else "elements"):
-            for _ in range(40):
-                mid = (lo + hi) / 2
-                if split(mid) is None:
-                    lo = mid
-                else:
-                    hi = mid
-            bounds = split(hi)
+                         model="rows" if nw is not None else "elements",
+                         rule=rule) as st:
+            target, bounds = min_max_split(split, lo, hi)
+            lc = lane_costs(cost, halo, bounds)
+            st.set(target=target, max_cost=float(lc.max()),
+                   mean_cost=float(lc.mean()))
         if self.phase_step > 1:
             # a lane must start at an entry point: a sampled phase
             ent = self._entries()[0]
@@ -852,8 +956,12 @@ class TorchGraphDecoder:
         nodes (`safe_nodes`); `plan.verify` keeps the steady layout it
         verified: the fixup's rounds (the dirty-chain depth,
         `fixup_rounds`), the dirty nodes the fixup resolves each call
-        (`dirty_nodes`), the empty lanes (`empty_lanes`) and all lanes
-        (`lanes`)."""
+        (`dirty_nodes`), the empty lanes (`empty_lanes`), all lanes
+        (`lanes`), and the longest lane's and the mean lane's rows in the
+        verifying decode (`rows_max`, `rows_mean`, the mean over all
+        lanes). Each `emit.split` keeps its rule (`rule`, `_split_rule`),
+        the bisected `target`, and the split's longest and mean lane cost
+        (`max_cost`, `mean_cost`)."""
         with trace.span("decode", lanes=num_lanes):
             return self._adjacency_device(num_lanes, launch)
 
@@ -913,20 +1021,14 @@ class TorchGraphDecoder:
                 pl.pop(k, None)
         elif "node_work" not in pl and "rows_np" in pl:
             # one refinement: the split modelled steps as elements +
-            # 2*nodes; spread each lane's observed rows over its nodes
-            # and re-split on that
+            # 2*nodes; re-split on the rows the decode observed
             with trace.stage("plan.refine"):
-                starts_np, ends_np = pl["starts_np"], pl["ends_np"]
-                degs_np = pl["degs_np"].astype(np.float64)
-                offs = np.concatenate([[0], np.cumsum(degs_np)])
-                nw = degs_np.copy()
-                rows = pl["rows_np"].astype(np.float64)
-                for li in range(len(starts_np)):
-                    a, b = int(starts_np[li]), int(ends_np[li])
-                    if b > a:
-                        extra = max(rows[li] - (offs[b] - offs[a]), 0.0)
-                        nw[a:b] += extra / (b - a)
-                pl["node_work"] = nw
+                lanes = pl["starts_np"], pl["ends_np"], pl["rows_np"]
+                if self._split_rule() == "last_safe":
+                    pl["node_work"] = node_rows(
+                        trace.fetch(pl["post_meta"]["mrow_d"]), *lanes)
+                else:
+                    pl["node_work"] = spread_rows(pl["degs_np"], *lanes)
             for k in ("regs", "cap", "post_meta", "lane_of", "bounds",
                       "rows_np"):
                 pl.pop(k, None)
@@ -934,11 +1036,12 @@ class TorchGraphDecoder:
         else:
             pl["verified"] = True
             # the steady layout this plan keeps, on its plan.verify stage
-            mc = pl["post_meta"]
+            mc, rows = pl["post_meta"], pl["rows_np"]
             step.set(fixup_rounds=int(mc["rounds"]),
                      dirty_nodes=len(mc["order_np"]),
                      empty_lanes=int((pl["starts_np"] >= pl["ends_np"]).sum()),
-                     lanes=len(pl["starts_np"]))
+                     lanes=len(pl["starts_np"]), rows_max=int(rows.max()),
+                     rows_mean=float(rows.mean()))
         return succs2d, starts_flat, degs
 
     def _emit_call(self, pl: dict, num_lanes: int, launch):
