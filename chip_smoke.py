@@ -26,12 +26,16 @@ decoded back through both device paths and the sequential reader). Then
 the paths built on the same kernels: the sort-path reconstruction
 (decode_to_csr_device, the aux-mode decode and the device reconstruction)
 on cnr-2000 and on its high-compression artifact (window 16, unbounded
-reference chains: the deep rounds), the fallbacks of
-decode_to_adjacency_device onto it (a window past 16, a post-pass error),
-the JAX bench's high-compression mode (window 16 with a reference root
-every 128 nodes) through the merged emit's window-16 kernel at 1024 lanes
-into its steady state (failing if the sort path served; its fixup kernel
-held and timed as on the window-7 plan), and batch
+reference chains: the deep rounds), the fallback of
+decode_to_adjacency_device onto it (a window past 16) and a window-16
+chain without safe breaks on the merged emit, the JAX bench's
+high-compression mode (window 16 with a reference root every 128 nodes)
+through the merged emit's window-16 kernel at 1024 lanes into its steady
+state (failing if the sort path served; its fixup kernel held and timed
+as on the window-7 plan), the reference's own high-compression artifact
+(no safe breaks, chains 4,506 deep) the same way, its lanes cut inside
+the long safe gaps and its fixup held on its layout, beside the sort
+path's time on it, and batch
 random access on cnr-2000 (wave decode, the device CSR server,
 per-query merged-emit lanes, with their reruns at larger caps, and the
 full-decode route), the device-resident serving contract
@@ -637,10 +641,12 @@ class Warnings(logging.Handler):
         self.messages.append(record.getMessage())
 
 
-def sort_path_phases(g, adj, edec, runs: PathRuns, hc_base: str) -> None:
+def sort_path_phases(g, adj, edec, runs: PathRuns, hc_base: str) -> float:
     """Phases 15-17: the sort path on cnr-2000 (serial and
-    high-compression) and the fallbacks of decode_to_adjacency_device.
-    The high-compression artifact is also written to hc_base."""
+    high-compression), the fallbacks of decode_to_adjacency_device and a
+    window-16 chain without safe breaks on the merged emit. The
+    high-compression artifact is also written to hc_base. Returns the
+    sort path's warm seconds on it."""
     from webgraph_ans_torch import ANSBvGraph, TorchGraphDecoder
     from webgraph_ans_torch.ans.prelude import save_pointers, save_states
     from webgraph_ans_torch.bvgraph.graph import Adjacency
@@ -724,32 +730,38 @@ def sort_path_phases(g, adj, edec, runs: PathRuns, hc_base: str) -> None:
                          "never ran")
     del hdec, res_hc
 
-    # ---- 17. the fallbacks of decode_to_adjacency_device on the card: a
-    # window past 16, and a post-pass error on a window-16 chain 299 deep
-    # without safe breaks, whose first 512-row ring loses node 1's copy
-    # source (600 rows back) ----
+    # ---- 17. decode_to_adjacency_device on the card: the fallback of a
+    # window past 16 (two calls), and a window-16 chain 299 deep without
+    # safe breaks on the merged emit (five calls, into the steady state):
+    # its lanes are cut inside the chain and the first 512-row ring loses
+    # node 1's copy source (600 rows back), so the fixup finishes dirty
+    # chains hundreds of nodes deep ----
     caught = Warnings()
     logging.getLogger(graph_decode.__name__).addHandler(caught)
-    cases = {"window20": (rand_lists(2000, 20, 24), (20, 3, 2),
+    cases = {"window20": (rand_lists(2000, 20, 24), (20, 3, 2), 2,
                           ["decode_blocks_aux"]),
              "w16_chain_no_breaks": ([list(range(0, 1800, 3))] * 300,
-                                     (16, 2_000_000_000, 4),
-                                     ["decode_emit", "decode_blocks_aux"])}
+                                     (16, 2_000_000_000, 4), 5,
+                                     ["decode_emit", "emit_fixup",
+                                      "decode_blocks_aux"])}
     fallbacks = []
-    for name, (lists_f, args, needs) in cases.items():
+    for name, (lists_f, args, ncalls, needs) in cases.items():
         res_f = compress_adjacency(Adjacency.from_lists(lists_f), *args)
         fdec = TorchGraphDecoder(ANSBvGraph(res_f.prelude, res_f.states,
                                             res_f.pointers))
         caught.messages.clear()
 
-        def two_calls():
+        def calls():
             return [to_host_lists(*fdec.decode_to_adjacency_device(
-                SMALL_LANES), len(lists_f)) for _ in range(2)]
+                SMALL_LANES), len(lists_f)) for _ in range(ncalls)]
 
-        got, counts = runs(f"fallback {name}", two_calls, needs)
-        cause = fdec._plans[("emit", SMALL_LANES)].get("emit_broken")
+        got, counts = runs(f"fallback {name}", calls, needs)
+        fpl = fdec._plans[("emit", SMALL_LANES)]
         fallbacks.append({
-            "case": name, "cause": cause, "warnings": caught.messages[:],
+            "case": name, "cause": fpl.get("emit_broken"),
+            "steady": fdec.emit_steady(SMALL_LANES),
+            "fixup_rounds": fpl.get("post_meta", {}).get("rounds"),
+            "warnings": caught.messages[:],
             "device": str(fdec.device), "launches": counts,
             "exact": all([x.tolist() for x in lists_got] == lists_f
                          for lists_got in got)})
@@ -759,10 +771,12 @@ def sort_path_phases(g, adj, edec, runs: PathRuns, hc_base: str) -> None:
          cnr2000_steady_emit_broken=steady_broken)
     if not (all(f["exact"] for f in fallbacks)
             and fallbacks[0]["cause"] == "window 20 > 16"
-            and "post-pass" in (fallbacks[1]["cause"] or "")
+            and fallbacks[1]["cause"] is None and fallbacks[1]["steady"]
             and not steady_broken):
-        raise SystemExit("fallbacks: wrong lists or causes, or cnr-2000's "
+        raise SystemExit("fallbacks: wrong lists or causes, the window-16 "
+                         "chain left the merged emit, or cnr-2000's "
                          "merged-emit path fell back")
+    return hc_warm_s
 
 
 def wave_vs_plain(ra, q) -> dict:
@@ -1515,7 +1529,7 @@ def emit_kernel_scale(dec, pl, tokens: int, short: bool = False) -> dict:
 def timing_hooks(dec, host: dict):
     """Adds the host seconds of the decoder's planner steps into host, and
     lists the caps its merged-emit launches ran at in host["caps"]."""
-    for key in ("_emit_bounds", "_safe_boundaries"):
+    for key in ("_emit_bounds", "_safe_boundaries", "_reference_chains"):
         fn = getattr(dec, key)
         host[key] = 0.0
 
@@ -1731,16 +1745,17 @@ def scale_random_access(sc: Scale, adj, gs, edec, tokens: int):
     ondemand_phase(sc, gs, adj, srv, tokens)
 
 
-def fixup_hold(dec, pl) -> dict:
+def fixup_hold(dec, pl, plain_on_host: bool = False) -> dict:
     """The fixup of a verified merged-emit plan on the card: the
     emit_fixup kernel on a mark_deg decode's val channel, held bit for bit
-    against its plain version (node by node). Both patch val in place, so
-    each call gets a fresh copy of it. Times the kernel's wrapper (zeroed
-    flags and the launch, on fresh copies; CUDA events, median of
-    TIMED_RUNS) beside the bound of the bytes the fixup needs: the node
-    table, each element's source, its gathered value and its write, each
-    read or written once (bound_ms). `hold_launches` counts the hold's own
-    calls of the kernel, none of the main path."""
+    against its plain version (node by node; on host copies of its inputs
+    with plain_on_host). Both patch val in place, so each call gets a
+    fresh copy of it. Times the kernel's wrapper (zeroed flags and the
+    launch, on fresh copies; CUDA events, median of TIMED_RUNS) beside the
+    bound of the bytes the fixup needs: the node table, each element's
+    source, its gathered value and its write, each read or written once
+    (bound_ms). `hold_launches` counts the hold's own calls of the kernel,
+    none of the main path."""
     from webgraph_ans_torch.ops import emit_cuda, fixup_cuda
 
     mc = pl["post_meta"]
@@ -1754,9 +1769,10 @@ def fixup_hold(dec, pl) -> dict:
 
     launches = fixup_cuda.emit_fixup.launches
     kernel = fixup_cuda.emit_fixup(val.clone(), nodes, srcs)
+    on = (lambda t: t.cpu()) if plain_on_host else (lambda t: t.clone())
     plain, plain_s = timed(lambda: fixup_cuda.emit_fixup_plain(
-        val.clone(), nodes, srcs))
-    held = compare([kernel], [plain])
+        on(val), on(nodes), on(srcs)))
+    held = compare([on(kernel)], [plain])
     t_kernel = cuda_ms(fresh(TIMED_RUNS + 3))
     nd, E = nodes.shape[0], srcs.shape[0]
     degs = nodes[:, 1].cpu().numpy()
@@ -1799,7 +1815,7 @@ def hc_safe_break_phase(adj, runs: PathRuns, smi: str, tmp: str) -> dict:
     timing_hooks(dec, host)
     calls, steady, first, pl = emit_to_steady(
         sc, dec, adj, "hc safe-break merged emit", host, lanes=HC_LANES)
-    parent, has_ref, counts = dec._reference_parents()
+    parent, has_ref, counts, _ = dec._reference_parents()
     exact, deepest = converged_safe_nodes(parent, has_ref)
     used = pl["safe_np"]
     safe = {"passes_to_converge": deepest,
@@ -1835,6 +1851,80 @@ def hc_safe_break_phase(adj, runs: PathRuns, smi: str, tmp: str) -> dict:
     if not (fixup["plain"]["bit_equal"] and fixup["hold_launches"] > 0):
         raise SystemExit("hc safe-break: the fixup kernel differs from its "
                          "plain version")
+    kernel["fixup"] = fixup
+    return kernel
+
+
+def hc_no_breaks_phase(adj, runs: PathRuns, smi: str, tmp: str,
+                       sort_path_s: float) -> dict:
+    """Phase 17c: cnr-2000 stored as the reference stores it at high
+    compression (store(..., 16, 2e9, 4), no safe breaks: reference chains
+    4,506 deep, the benchmark's cnr2000hcref), decoded by the merged emit
+    at HC_LANES lanes into the verified steady state, every call list for
+    list: lanes are cut inside the safe gaps longer than their target, and
+    the fixup finishes the chains the cuts cross. Fails if the sort path
+    served or the fixup kernel differs from its plain version (on host
+    copies) on the verified layout. Prints the plan (cap, lanes, unsafe
+    cuts, dirty nodes and elements, fixup rounds), decode_emit's and the
+    fixup's times beside their bounds (decode_emit not held here: 17b
+    holds the same instance), and the steady decode beside phase 16's warm
+    sort path on the same artifact (sort_path_s)."""
+    from webgraph_ans_torch import ANSBvGraph, TorchGraphDecoder, store
+    from webgraph_ans_torch.ops import emit_cuda, graph_decode
+    from webgraph_ans_torch.ops.emit_cuda import decode_emit
+
+    base = os.path.join(tmp, "cnr_hc_no_breaks")
+    res, store_s = timed(lambda: store(CNR, base, 16, 2_000_000_000, 4))
+    del res
+    g = ANSBvGraph.load(base)
+    arcs = adj.num_arcs
+    sc = Scale(runs, smi, tmp, graph="cnr-2000 hc no safe breaks")
+    sc.start()
+    dec = TorchGraphDecoder(g)
+    host = {}
+    timing_hooks(dec, host)
+    calls, steady, first, pl = emit_to_steady(
+        sc, dec, adj, "hc no-break merged emit", host, lanes=HC_LANES)
+    counts = dec._reference_parents()[2]
+    T = pl["T"]
+    eargs = emit_args(dec, pl, pl["cap"])
+    ek = decode_emit(*eargs, T=T, mark_deg=True)
+    kernel = {"lanes": len(pl["starts_np"]), "cap": pl["cap"], "T": T,
+              "ms": cuda_ms(lambda: decode_emit(*eargs, T=T,
+                                                mark_deg=True)),
+              **emit_bound(dec, pl, pl["cap"], ek[3], int(counts.sum())),
+              **emit_cuda.launch_geometry(dec.window, T)}
+    del ek, eargs
+    mc = pl["post_meta"]
+    steady_ms = steady["device_ms"]["median"]
+    sc.emit("hc_no_breaks_emit", dec=dec,
+            flat=_flat(pl, dec._plans.get(2048)), window=16,
+            max_ref_count=2_000_000_000, min_interval_length=4,
+            source="webgraph-ans-rs script.py:24, README.md:141-165",
+            store_seconds=store_s,
+            ans_bytes=os.path.getsize(base + ".ans"),
+            bits_per_link=os.path.getsize(base + ".ans") * 8 / arcs,
+            lanes=HC_LANES, cold_seconds=[c["seconds"] for c in calls],
+            calls=calls, steady=steady,
+            steady_ns_per_arc=steady_ms * 1e6 / arcs,
+            sort_path_warm_seconds=sort_path_s,
+            sort_path_over_steady=sort_path_s * 1e3 / steady_ms,
+            cap=pl["cap"], rows_max=int(pl["rows_np"].max()),
+            rows_mean=float(pl["rows_np"].mean()),
+            empty_lanes=int(np.sum(pl["starts_np"] >= pl["ends_np"])),
+            unsafe_cuts=graph_decode.unsafe_cuts(pl["starts_np"],
+                                                 pl["safe_np"]),
+            dirty_nodes=len(mc["order_np"]),
+            dirty_elements=int(mc["fx_srcs"].shape[0]),
+            fixup_rounds=mc["rounds"], emit_broken=pl.get("emit_broken"),
+            kernel=kernel, first_call=first)
+    fixup = fixup_hold(dec, pl, plain_on_host=True)
+    sc.emit("hc_no_breaks_fixup_vs_plain", dec=dec, lanes=HC_LANES,
+            **fixup)
+    if pl.get("emit_broken") or not (fixup["plain"]["bit_equal"]
+                                     and fixup["hold_launches"] > 0):
+        raise SystemExit("hc without safe breaks: the sort path served, or "
+                         "the fixup kernel differs from its plain version")
     kernel["fixup"] = fixup
     return kernel
 
@@ -2548,10 +2638,13 @@ def main() -> int:
         # ---- 15-19. the sort path, its fallbacks and random access ----
         runs = PathRuns()
         hc_base = os.path.join(tmp, "cnr_hc")
-        sort_path_phases(g, adj, edec, runs, hc_base)
+        hc_sort_s = sort_path_phases(g, adj, edec, runs, hc_base)
         # ---- 17b. the JAX bench's hc mode with safe breaks: the merged
         # emit's window-16 instance at 1024 lanes ----
         hc_kernel = hc_safe_break_phase(adj, runs, smi, tmp)
+        # ---- 17c. the reference's hc artifact, without safe breaks, on
+        # the merged emit at 1024 lanes ----
+        hcref_kernel = hc_no_breaks_phase(adj, runs, smi, tmp, hc_sort_s)
         ra_cmp = random_access_phases(g, adj, edec, runs, smi)
 
         # ---- 20-25. scale-out: shards on the card, ranks over gloo and
@@ -2652,14 +2745,18 @@ def main() -> int:
         "replaces": None,
         "launches": path_launches["emit_fixup"] + runs.total["emit_fixup"],
         "bit_equal": (fix_w7["plain"]["bit_equal"]
-                      and hc_kernel["fixup"]["plain"]["bit_equal"]),
+                      and hc_kernel["fixup"]["plain"]["bit_equal"]
+                      and hcref_kernel["fixup"]["plain"]["bit_equal"]),
         "max_abs_err": max(fix_w7["plain"]["max_abs_err"],
-                           hc_kernel["fixup"]["plain"]["max_abs_err"]),
+                           hc_kernel["fixup"]["plain"]["max_abs_err"],
+                           hcref_kernel["fixup"]["plain"]["max_abs_err"]),
         "ms": fix_w7["ms"]["median"], "plain_ms": fix_w7["plain_ms"],
         "bound_ms": fix_w7["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "lanes": EMIT_LANES,
         "hc_safe_break_w16": {k: hc_kernel["fixup"][k] for k in (
             "rounds", "dirty_nodes", "ms", "bound_ms")},
+        "hc_no_breaks_w16": {k: hcref_kernel["fixup"][k] for k in (
+            "rounds", "dirty_nodes", "elements", "ms", "bound_ms")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -262,3 +262,46 @@ def test_unpack_nib_matches_jax(channels):
     np.testing.assert_array_equal(
         trecon.unpack_nibbles(_t(nib), S).numpy(),
         np.asarray(jpost.unpack_nib(jnp.asarray(nib), S)))
+
+
+def test_dirty_chains_at_any_depth():
+    """_dirty_chains on a parent array 10,000 deep: one dirty chain of
+    10,000 nodes, each referencing the node before, among seeded nodes
+    that reference up to 50 back and are dirty, clean or empty at random.
+    Its depths are the one-pass recurrence in node order (dirty: 1 + the
+    parent's depth, clean 0), its rounds their maximum, and its order the
+    dirty nodes by (depth, node); no bound on the depth."""
+    rng = np.random.default_rng(11)
+    n = 12_000
+    ids = np.arange(n)
+    ref = np.minimum(rng.integers(0, 50, n), ids).astype(np.int32)
+    kind = rng.integers(0, 3, n).astype(np.int32)
+    chain = np.arange(1_000, 11_000)
+    ref[chain] = 1
+    ref[chain[0]] = 0
+    kind[chain] = 1
+    mc = {}
+    tpost._dirty_chains(mc, {"kind": torch.from_numpy(kind),
+                             "ref": torch.from_numpy(ref)}, n)
+    want = np.zeros(n, np.int64)
+    for x in range(n):
+        if kind[x] == 1:
+            want[x] = 1 + (want[x - ref[x]] if ref[x] > 0 else 0)
+    np.testing.assert_array_equal(mc["ddep"], want)
+    assert mc["rounds"] == want.max() >= 10_000
+    dirty = np.flatnonzero(kind == 1)
+    order = sorted(dirty.tolist(), key=lambda x: (want[x], x))
+    np.testing.assert_array_equal(mc["order_np"], order)
+    np.testing.assert_array_equal(mc["parent"], np.maximum(ids - ref, 0))
+
+
+def test_fixup_plain_resolves_a_path_5000_deep():
+    """emit_fixup_plain on a layout whose one path runs 5,000 levels deep
+    (each node copying from the row before), with one-node paths that wait
+    on rows of it: every row's list is the one resolved level by level."""
+    from deep_layout import deep_path_layout, resolved
+
+    val, nodes, srcs, lists = deep_path_layout(5_000)
+    want = resolved(val, nodes, lists)
+    got = fixup_cuda.emit_fixup_plain(val.clone(), nodes, srcs)
+    assert torch.equal(got, want)

@@ -712,3 +712,20 @@ def test_emit_fixup_host_build_matches_plain_on_seeded_layouts(
     assert torch.equal(_fixup_host(fixup_libs[variant], val, nodes, srcs),
                        want)
 
+
+
+@pytest.mark.parametrize("width", [2, 3])
+@pytest.mark.parametrize("variant", list(FIXUP_VARIANTS))
+def test_emit_fixup_host_build_resolves_a_path_5000_deep(fixup_libs,
+                                                          variant, width):
+    """The kernel on a layout whose one path runs 5,000 levels deep, with
+    one-node paths that wait on its rows' flags: the lists resolved level
+    by level, and the plain version's. Rows of 2 elements take the warp
+    path of the host build (one thread, two slots), rows of 3 the
+    block's."""
+    from deep_layout import deep_path_layout, resolved
+
+    val, nodes, srcs, lists = deep_path_layout(5_000, width)
+    got = _fixup_host(fixup_libs[variant], val, nodes, srcs)
+    assert torch.equal(got, resolved(val, nodes, lists))
+    assert torch.equal(got, emit_fixup_plain(val.clone(), nodes, srcs))

@@ -134,22 +134,34 @@ def test_adjacency_device_returns_lists(results, name):
     assert (broken == "window 20 > 16") == (name == "window20")
 
 
-def test_postpass_deep_dirty_chain_falls_back(caplog):
-    """A real post-pass RuntimeError: on a window-16 chain 199 deep with
-    no safe break, an 8-row first ring makes node 1's copy source fall out
-    of the ring, and every later node copies from a dirty parent, past the
-    fixup's 192 rounds. The sort path returns the lists."""
+def test_postpass_deep_dirty_chain_resolves_on_the_merged_emit(
+        monkeypatch):
+    """On a window-16 chain 199 deep with no safe break, an 8-row first
+    ring makes node 1's copy source fall out of the ring, and every later
+    node copies from a dirty parent: a dirty chain 199 deep, past the 192
+    rounds the post-pass once took. The fixup resolves it at that depth,
+    and the plan goes on to its steady merged emit, every call returning
+    the lists. (A post-pass RuntimeError still sends a plan to the sort
+    path: test_torch_emit_pipeline.py test_postpass_error_propagates.)"""
     lists = _chain(200, 9)
     res = compress_adjacency(Adjacency.from_lists(lists), 16,
                              2_000_000_000, 4)
     dec = _torch_dec(res)
     dec.EMIT_RING_T = 8
-    with caplog.at_level(logging.WARNING, logger=graph_decode.__name__):
+    real, rounds = emit_post._dirty_chains, []
+
+    def spy(mc, tabs, n):
+        real(mc, tabs, n)
+        rounds.append(mc["rounds"])
+
+    monkeypatch.setattr(emit_post, "_dirty_chains", spy)
+    for _ in range(5):
         out = dec.decode_to_adjacency_device(1)
-    assert [x.tolist() for x in emit_post.to_host_lists(*out, 200)] == lists
-    cause = dec._plans[("emit", 1)]["emit_broken"]
-    assert "post-pass" in cause and "fixup supports" in cause
-    assert cause in caplog.text
+        got = emit_post.to_host_lists(*out, 200)
+        assert [x.tolist() for x in got] == lists
+    assert rounds[0] == 199
+    assert dec.emit_steady(1)
+    assert not dec._plans[("emit", 1)].get("emit_broken")
 
 
 @pytest.fixture()

@@ -21,7 +21,7 @@ from webgraph_ans_torch.bvgraph.random_access import ANSBvGraph
 from webgraph_ans_torch.bvgraph.store import compress_adjacency, store
 from webgraph_ans_torch.bvgraph.synth import synth_web_graph
 from webgraph_ans_torch.ops import (cuda_build, decode_cuda, emit_cuda,
-                                    fixup_cuda)
+                                    fixup_cuda, graph_decode)
 from webgraph_ans_torch.ops.decode_torch import round_cap
 from webgraph_ans_torch.ops.graph_decode import TorchGraphDecoder
 from webgraph_ans_torch.ops.random_torch import (TorchEmitRandomAccess,
@@ -199,11 +199,12 @@ def test_hc_store_decodes_to_the_plain_lists(hc_decoder):
 
 @pytest.mark.parametrize("case", ["standard", "hc"])
 def test_verify_stage_records_the_steady_layout(case, request):
-    """plan.verify keeps the layout it verified: the fixup's rounds and
-    dirty nodes from the post-pass's cache, the empty lanes and all lanes
-    from the plan, the longest and the mean lane's rows from its decode;
-    plan.safe keeps its safe nodes. The high-compression graph's steady
-    state has dirty chains to fix up."""
+    """plan.verify keeps the layout it verified: the fixup's rounds,
+    dirty nodes and their elements from the post-pass's cache, the empty
+    lanes, all lanes and the bounds not at a safe node from the plan, the
+    longest and the mean lane's rows from its decode; plan.safe keeps its
+    safe nodes. The high-compression graph's steady state has dirty chains
+    to fix up."""
     if case == "hc":
         dec, _, stages = request.getfixturevalue("hc_decoder")
         lanes = HC_LANES
@@ -217,9 +218,12 @@ def test_verify_stage_records_the_steady_layout(case, request):
     assert verify.attrs == {
         "lanes": len(pl["starts_np"]), "fixup_rounds": mc["rounds"],
         "dirty_nodes": len(mc["order_np"]),
+        "dirty_elements": int(mc["fx_srcs"].shape[0]),
         "empty_lanes": int((pl["starts_np"] >= pl["ends_np"]).sum()),
         "rows_max": int(pl["rows_np"].max()),
-        "rows_mean": float(pl["rows_np"].mean())}
+        "rows_mean": float(pl["rows_np"].mean()),
+        "unsafe_cuts": graph_decode.unsafe_cuts(pl["starts_np"],
+                                                pl["safe_np"])}
     assert verify.attrs["lanes"] == pl["regs"].shape[1] == lanes
     assert 0 <= verify.attrs["empty_lanes"] < verify.attrs["lanes"]
     assert safe.attrs == {"safe_nodes": int(pl["safe_np"].sum())}

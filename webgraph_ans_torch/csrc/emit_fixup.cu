@@ -24,29 +24,34 @@
 // ~40 us a level on an H100, and the high-compression artifact's chains
 // run 94 levels deep for 659 dirty nodes.
 //
-// What bounds it on an H100. The bytes are small (under 1.2 MB of
-// gathers and writes on cnr-2000); the work is ordered by chain depth,
+// What bounds it on an H100. The bytes are small (24.9 MB of node table,
+// sources, gathers and writes on the reference's break-free cnr-2000
+// artifact, 1.2 MB at window 7); the work is ordered by chain depth,
 // because a placeholder indexes the parent's *sorted* list, so its time
-// is the dependent chain's latency. What the design does about it:
+// is the dependent chain's latency: the longest path's rows one after
+// another (4,464 on that artifact), and its next longest. What the design
+// does about it:
 // - one persistent launch: blocks take rows from an atomic counter, a
 //   path's first row before the rest, and follow the path to its end;
-// - along a path the parent's sorted list stays in the block's shared
-//   memory: a level costs the node's own gathers (L2), a rank and a few
-//   barriers, and no flag;
+// - a path's rows of at most 64 elements (nearly all) go in batches of up
+//   to kBatch rows: the whole block gathers the batch's own values with
+//   one set of loads, then one warp finishes the rows in order from
+//   shared memory and registers, with warp barriers only; along a path
+//   the parent's sorted list stays in shared memory, and no flag is read;
 // - no copy of the channel: the lists are patched into val itself;
 // - where a path starts at a dirty parent of another path, the parent
-//   publishes a ready flag (fence, then store) and the first node polls
-//   it with volatile loads, fences, and reads the parent's rows past L1
-//   (__ldcg). Only a path's first row waits, and on an earlier path's
-//   row, so a wait cannot deadlock, whatever number of blocks is
-//   resident;
+//   publishes a ready flag (a barrier, then one thread's release store)
+//   and the first row polls it with acquire loads, sleeping between
+//   polls, and reads the parent's rows past L1 (__ldcg). Only a path's
+//   first row waits, and on an earlier path's row, so a wait cannot
+//   deadlock, whatever number of blocks is resident;
 // - ranks, not a sort: an emitted dirty list is a few sorted runs
 //   (copies, intervals, residuals), so each element's rank is its place
 //   in its run plus a binary search in each other run, in shared memory
 //   for lists up to kSmemInts elements (a device scratch region beyond);
-//   a list of more than kMaxRuns runs is ranked by counting;
-// - wide, shallow layouts (cnr-2000: 760 nodes in 4 levels) spread over
-//   every SM: one block a path.
+//   a longer row's list of more than kMaxRuns runs is ranked by counting;
+// - wide, shallow layouts (cnr-2000: 760 nodes in 4 levels, lists of
+//   ~120 elements) spread over every SM: one block a path.
 
 #include <cuda_runtime.h>
 
@@ -57,6 +62,8 @@ constexpr int kSmemInts = 2048;
 constexpr int kMaxRuns = 32;
 constexpr int kCols = 5;
 constexpr int kFollows = -2;   // a row's link: it continues the row before
+constexpr int kWarp = 32;
+constexpr int kBatch = 64;     // rows a batch holds at most
 
 // Elements of buf[lo, hi) (non-decreasing) below v, or up to v with
 // `upto`.
@@ -71,6 +78,65 @@ __device__ __forceinline__ int count_below(const int* buf, int lo, int hi,
   return a - lo;
 }
 
+// Warp-level steps: on the host build (one thread a block) the warp is
+// that thread.
+__device__ __forceinline__ int popc(unsigned m) {
+#ifdef __CUDA_ARCH__
+  return __popc(m);
+#else
+  return __builtin_popcount(m);
+#endif
+}
+
+__device__ __forceinline__ unsigned warp_ballot(bool p) {
+#ifdef __CUDA_ARCH__
+  return __ballot_sync(0xffffffffu, p);
+#else
+  return p ? 1u : 0u;
+#endif
+}
+
+__device__ __forceinline__ void warp_sync() {
+#ifdef __CUDA_ARCH__
+  __syncwarp();
+#endif
+}
+
+__device__ __forceinline__ void sleep_ns(int ns) {
+#ifdef __CUDA_ARCH__
+  __nanosleep(ns);
+#endif
+}
+
+// The ready flags' release (after the rows' writes) and acquire (before
+// the parent's rows are read), at the GPU's scope.
+__device__ __forceinline__ void store_release(int* p, int v) {
+#ifdef __CUDA_ARCH__
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+#else
+  *p = v;
+#endif
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+#ifdef __CUDA_ARCH__
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+#else
+  return *reinterpret_cast<const volatile int*>(p);
+#endif
+}
+
+// Waits for a ready flag, sleeping between polls (up to ~1 us) so that
+// the blocks that wait leave the memory system to those that work.
+__device__ __forceinline__ void wait_ready(const int* flag) {
+  for (int ns = 32; load_acquire(flag) == 0; ns = ns < 1024 ? 2 * ns : ns)
+    sleep_ns(ns);
+}
+
 // nodes: [nd, kCols] int32 rows (element base, degree, flat index of the
 // first output row, link, publish), a path's rows one after another, the
 // paths in the order of their first rows' chain depth. link: kFollows
@@ -79,15 +145,29 @@ __device__ __forceinline__ int count_below(const int* buf, int lo, int hi,
 // 1 when a row of another path reads this one (it sets its flag). srcs:
 // [E] int32 element sources (>= 0: val index; < 0: ~j, the parent's j-th
 // successor). val is read and patched in place, so its loads are plain
-// (no read-only path). flags [nd] and *next arrive zeroed; spill holds
-// 2 E ints for lists past kSmemInts.
+// (no read-only path); the values at the sources are successors, never
+// negative. flags [nd] and *next arrive zeroed; spill holds 2 E ints for
+// lists past kSmemInts.
+//
+// A path's rows of at most 2 W elements (W = 32 lanes on the card) go in
+// batches: the whole block loads the headers of up to kBatch rows that
+// follow one another with their elements one after another, and gathers
+// all their own values at once (placeholders kept as ~j); then the first
+// warp finishes the batch's rows one by one, each lane holding the
+// elements at slots lane and lane + W, with no global load and no block
+// barrier, while the other warps wait: its runs from two ballots, each
+// element's rank from binary searches in the other runs. A longer row is
+// ranked by the whole block from its runs.
 __global__ void __launch_bounds__(kThreads) emit_fixup_kernel(
     int* val, const int* __restrict__ nodes, const int* __restrict__ srcs,
     int nd, int E, int G, int* flags, int* next, int* spill) {
   __shared__ int cur_s[kSmemInts], list_s[2][kSmemInts];
   __shared__ int runs_s[kMaxRuns];
-  __shared__ int row_s, nrun_s;
+  __shared__ int hdr_s[kBatch][kCols], off_s[kBatch + 1];
+  __shared__ int wruns_s[2 * kWarp + 1];
+  __shared__ int row_s, nrun_s, batch_s;
   const int t = threadIdx.x, T = blockDim.x;
+  const int W = T < kWarp ? T : kWarp;   // the batches' lanes
   for (;;) {
     if (t == 0) row_s = atomicAdd(next, 1);
     __syncthreads();
@@ -96,7 +176,108 @@ __global__ void __launch_bounds__(kThreads) emit_fixup_kernel(
     if (q >= nd) break;
     if (nodes[kCols * q + 3] == kFollows) continue;   // its path's block
     const int* prev = nullptr;    // the sorted list of the row before
-    for (int side = 0;; ++q, side ^= 1) {
+    int side = 0;
+    for (;;) {
+      if (nodes[kCols * q + 1] <= 2 * W) {
+        // a batch from row q: the headers, then its length and offsets
+        for (int i = t; i < kBatch * kCols; i += T) {
+          const int r = q + i / kCols, c = i % kCols;
+          hdr_s[i / kCols][c] = r < nd ? nodes[kCols * q + i]
+                                       : (c == 3 ? -1 : 0);
+        }
+        __syncthreads();
+        if (t == 0) {
+          int b = 0, off = 0;
+          for (; b < kBatch; ++b) {
+            const int* h = hdr_s[b];
+            if (b > 0 && (h[3] != kFollows || h[0] != hdr_s[0][0] + off))
+              break;
+            if (h[1] > 2 * W || off + h[1] > kSmemInts) break;
+            off_s[b] = off;
+            off += h[1];
+          }
+          off_s[b] = off;
+          batch_s = b;
+        }
+        __syncthreads();
+        const int B = batch_s, e0 = hdr_s[0][0];
+        for (int i = t; i < off_s[B]; i += T) {
+          const int s = srcs[e0 + i];
+          cur_s[i] = s >= 0 ? val[s] : s;
+        }
+        __syncthreads();
+        if (t < W) {
+          const int lane = t;
+          for (int b = 0; b < B; ++b) {
+            const int* h = hdr_s[b];
+            const int n = h[1], link = h[3], off = off_s[b];
+            int va = lane < n ? cur_s[off + lane] : 0;
+            int vb = lane + W < n ? cur_s[off + lane + W] : 0;
+            if (link >= 0) {
+              if (lane == 0) wait_ready(flags + link);
+              warp_sync();
+              const int* parent = val + nodes[kCols * link + 2];
+              if (lane < n && va < 0)
+                va = __ldcg(parent + static_cast<long long>(~va) * G);
+              if (lane + W < n && vb < 0)
+                vb = __ldcg(parent + static_cast<long long>(~vb) * G);
+            } else if (link == kFollows) {
+              if (lane < n && va < 0) va = prev[~va];
+              if (lane + W < n && vb < 0) vb = prev[~vb];
+            }
+            // the row's elements in shared memory, then its sorted runs:
+            // run starts where an element is below the one before
+            int* cur = cur_s + off;
+            if (lane < n) cur[lane] = va;
+            if (lane + W < n) cur[lane + W] = vb;
+            warp_sync();
+            const bool da = lane > 0 && lane < n && cur[lane - 1] > va;
+            const bool db = lane + W < n && cur[lane + W - 1] > vb;
+            const unsigned ma = warp_ballot(da), mb = warp_ballot(db);
+            const unsigned below = (1u << lane) - 1u;   // lanes before
+            const int na = popc(ma);
+            if (lane == 0) wruns_s[0] = 0;
+            if (da) wruns_s[1 + popc(ma & below)] = lane;
+            if (db) wruns_s[1 + na + popc(mb & below)] = lane + W;
+            warp_sync();
+            const int R = 1 + na + popc(mb);
+            // rank = elements below v, and equal ones before it: its place
+            // in its run, and a search in each other run
+            const int r_a = popc(ma & (below | (1u << lane)));
+            const int r_b = na + popc(mb & (below | (1u << lane)));
+            int ra = lane - wruns_s[r_a], rb = lane + W - wruns_s[r_b];
+            for (int j = 0; j < R; ++j) {
+              const int lo = wruns_s[j], hi = j + 1 < R ? wruns_s[j + 1] : n;
+              if (j != r_a && lane < n)
+                ra += count_below(cur, lo, hi, va, j < r_a);
+              if (j != r_b && lane + W < n)
+                rb += count_below(cur, lo, hi, vb, j < r_b);
+            }
+            int* dst = val + h[2];
+            int* sorted = list_s[side];
+            if (lane < n) {
+              dst[static_cast<long long>(ra) * G] = va;
+              sorted[ra] = va;
+            }
+            if (lane + W < n) {
+              dst[static_cast<long long>(rb) * G] = vb;
+              sorted[rb] = vb;
+            }
+            warp_sync();
+            if (h[4] && lane == 0) store_release(flags + q + b, 1);
+            prev = sorted;
+            side ^= 1;
+          }
+        }
+        __syncthreads();
+        if (t >= W) {   // the warp's side and list, as it left them
+          side ^= B & 1;
+          prev = list_s[side ^ 1];
+        }
+        q += B;
+        if (q >= nd || nodes[kCols * q + 3] != kFollows) break;
+        continue;
+      }
       const int* row = nodes + kCols * q;
       const int ebase = row[0], n = row[1], start = row[2], link = row[3];
       const int* src = srcs + ebase;
@@ -111,11 +292,7 @@ __global__ void __launch_bounds__(kThreads) emit_fixup_kernel(
         if (s >= 0) cur[k] = val[s];
       }
       if (link >= 0) {
-        if (t == 0) {
-          while (*reinterpret_cast<volatile int*>(flags + link) == 0) {
-          }
-          __threadfence();
-        }
+        if (t == 0) wait_ready(flags + link);
         __syncthreads();
         const int* parent = val + nodes[kCols * link + 2];
         for (int k = t; k < n; k += T) {
@@ -169,11 +346,12 @@ __global__ void __launch_bounds__(kThreads) emit_fixup_kernel(
         dst[static_cast<long long>(rank) * G] = v;
         sorted[rank] = v;
       }
-      if (row[4]) __threadfence();
       __syncthreads();
-      if (row[4] && t == 0) atomicExch(flags + q, 1);
+      if (row[4] && t == 0) store_release(flags + q, 1);
       prev = sorted;
+      side ^= 1;
       if (q + 1 >= nd || nodes[kCols * (q + 1) + 3] != kFollows) break;
+      ++q;
     }
   }
 }

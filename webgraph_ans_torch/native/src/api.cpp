@@ -929,33 +929,72 @@ int32_t wgt_emit_split(const double* cost, const double* halo,
   return 1;
 }
 
-// The split of plans that cut only at safe nodes: a lane that starts at
-// a has sum halo[a] + (P[b] - P[a]), P the sequential prefix sums of cost
+// The split of plans that cut at safe nodes: a lane that starts at a has
+// sum halo[a] + (P[b] - P[a]), P the sequential prefix sums of cost
 // (P[0] = 0), and ends at the largest safe b > a whose sum stays within
 // `target`, or at n. The sum grows with b, so each lane walks from its
 // start until the sum passes target and closes at the last safe node
 // before that; the next lane walks on from there (P carried exactly).
+//
+// With cross (and gap) given, a safe gap longer than the target may be
+// cut inside: gap[x] is the cost of the safe gap holding node x (from the
+// last safe node at or before x to the next one), cross[b] the reference
+// chains a bound at b crosses. Where the node that passes the target lies
+// in a gap longer than the target, and the last safe node fills the lane
+// below fill * target (or there is none), the lane closes at the unsafe
+// node after it that the fewest chains cross among those that fill the
+// lane to fill * target, the last such on ties (at the fullest, where
+// none fills it so far). A split whose gaps all fit the target is the
+// same with or without them.
+//
 // Writes num_lanes + 1 bounds (the unused lanes empty at n) and returns
 // 1; returns 0 when a lane has no such b or the nodes need more than
 // num_lanes lanes at this target.
 int32_t wgt_emit_split_last(const double* cost, const double* halo,
-                            const uint8_t* safe, uint64_t n,
-                            uint64_t num_lanes, double target,
+                            const uint8_t* safe, const int32_t* cross,
+                            const double* gap, uint64_t n,
+                            uint64_t num_lanes, double target, double fill,
                             int64_t* bounds) {
   uint64_t nb = 1, a = 0;
   double pa = 0.0;
   bounds[0] = 0;
+  const double least = fill * target;
   while (a < n) {
     if (nb > num_lanes) return 0;
     const double base = halo[a];
-    uint64_t last = a;
+    uint64_t last = a, xb = n;
     double p = pa, plast = pa;
     for (uint64_t x = a; x < n; ++x) {
       p += cost[x];
-      if (base + (p - pa) > target) break;
+      if (base + (p - pa) > target) {
+        xb = x;
+        break;
+      }
       if (x + 1 == n || safe == nullptr || safe[x + 1]) {
         last = x + 1;
         plast = p;
+      }
+    }
+    if (cross != nullptr && xb < n && gap[xb] > target &&
+        !(last > a && base + (plast - pa) >= least)) {
+      // the unsafe bounds after the last safe node, up to xb
+      uint64_t best = a;
+      double pbest = pa, q = plast;
+      bool filled = false;
+      for (uint64_t b = last + 1; b <= xb; ++b) {
+        q += cost[b - 1];
+        const bool fills = base + (q - pa) >= least;
+        if (fills ? (!filled || cross[b] <= cross[best]) : !filled) {
+          best = b;
+          pbest = q;
+          filled = fills;
+        }
+      }
+      if (best > a) {
+        bounds[nb++] = static_cast<int64_t>(best);
+        a = best;
+        pa = pbest;
+        continue;
       }
     }
     if (last == a) return 0;

@@ -46,10 +46,6 @@ from .fixup_cuda import FOLLOWS, emit_fixup
 from .reconstruct_device import _cumsum, _cumsum_tok, unpack_nibbles
 
 I32 = torch.int32
-# the deepest dirty chain the post-pass takes: deeper artifacts keep the
-# sort path until the planner splits them across dirty lanes (ROADMAP §4
-# item 1); the node-layout fixup itself has no such bound
-MAX_DIRTY_DEPTH = 192
 
 # row codes
 C_EL, C_FIRST, C_HOLE, C_REFINFO, C_PLACE, C_EMPTY = range(6)
@@ -178,20 +174,25 @@ def _node_layout(mc: dict, deg, startsF, G: int, order, ordl, rowf, vals,
     pord = np.where(reads, ordinal[mc["parent"][order]], -1)
     if (reads & ((pord < 0) | (pord >= np.arange(nd)))).any():
         raise RuntimeError("a dirty node reads a parent not before it")
-    # each node's tallest subtree, then the child a path follows
+    # each node's tallest subtree, a chain depth at a time from the
+    # deepest (a node reads a parent one chain level up), then the child
+    # a path follows
     height = np.ones(nd, np.int64)
-    for i in range(nd - 1, -1, -1):
-        if pord[i] >= 0:
-            height[pord[i]] = max(height[pord[i]], height[i] + 1)
+    lvl = mc["ddep"][order]
+    edges = np.flatnonzero(np.diff(lvl)) + 1
+    for a, b in zip(np.append(edges, nd)[::-1], np.append(0, edges)[::-1]):
+        r = np.arange(b, a)[pord[b:a] >= 0]
+        np.maximum.at(height, pord[r], height[r] + 1)
     kids = np.nonzero(pord >= 0)[0]
     kids = kids[np.lexsort((kids, -height[kids], pord[kids]))]
     first = np.ones(len(kids), bool)
     first[1:] = pord[kids][1:] != pord[kids][:-1]
     follows = np.zeros(nd, bool)
     follows[kids[first]] = True
-    path = np.arange(nd)
-    for i in np.nonzero(follows)[0]:        # ordinals rise along a path
-        path[i] = path[pord[i]]
+    # a path's id is its first node's ordinal (ordinals rise along it)
+    ids = np.arange(nd)
+    path = ids + chain_sums(np.where(follows, pord, -1),
+                            np.where(follows, pord - ids, 0))
     rows = np.lexsort((np.arange(nd), path))
     row_of = np.empty(nd, np.int64)
     row_of[rows] = np.arange(nd)
@@ -280,33 +281,37 @@ def post_steady(val, xch, lane_of, mrow, kind, starts_flat, fx_nodes,
     return val, starts_flat, deg
 
 
+def chain_sums(up: np.ndarray, count: np.ndarray) -> np.ndarray:
+    """Each node's count summed along its chain: s[x] = count[x] +
+    s[up[x]] where up[x] >= 0, else count[x]. Every chain must end (up
+    points to an earlier node, as a parent precedes its children); pointer
+    doubling, about log2 of the deepest chain passes over the nodes."""
+    n = len(up)
+    # node n: the chains' end, counting 0
+    nxt = np.append(np.where(up >= 0, up, n), n)
+    s = np.append(np.asarray(count, np.int64), 0)
+    while (nxt[:n] < n).any():
+        s = s + s[nxt]
+        nxt = nxt[nxt]
+    return s[:n]
+
+
 def _dirty_chains(mc: dict, tabs: dict, n: int):
     """Each node's parent and dirty-chain depth ("parent", "ddep"; clean
     0, dirty 1 + the depth of its maybe dirty parent, a dirty node without
     a reference 1), the deepest chain ("rounds") and the dirty nodes in
     (chain depth, node) order ("order_np"), the order the fixup resolves
-    them in. Raises RuntimeError past MAX_DIRTY_DEPTH."""
+    them in. Any depth: parents precede children (chain_sums)."""
     kind = trace.fetch(tabs["kind"])
     ref = trace.fetch(tabs["ref"])
     parent = np.maximum(np.arange(n) - ref, 0)
     dirty = kind == 1
-    hasref = ref > 0
-    ddep = np.where(dirty, 1, 0).astype(np.int32)
-    for _ in range(4096):
-        upd = dirty & hasref & (ddep <= ddep[parent])
-        if not upd.any():
-            break
-        ddep = np.where(upd, ddep[parent] + 1, ddep)
-    else:
-        raise RuntimeError("dirty chains deeper than 4096")
-    depth = int(ddep.max())
-    if depth > MAX_DIRTY_DEPTH:
-        raise RuntimeError(f"dirty chains {depth} rounds deep "
-                           f"(fixup supports <= {MAX_DIRTY_DEPTH})")
-    didx = np.nonzero(dirty)[0]
-    dd_sort = np.argsort(ddep[didx] * (n + 1.0) + didx, kind="stable")
-    mc.update(parent=parent.astype(np.int32), ddep=ddep, rounds=depth,
-              order_np=didx[dd_sort].astype(np.int32))
+    ddep = chain_sums(np.where(dirty & (ref > 0), parent, -1),
+                      dirty).astype(np.int32)
+    didx = np.flatnonzero(dirty)
+    mc.update(parent=parent.astype(np.int32), ddep=ddep,
+              rounds=int(ddep.max(initial=0)),
+              order_np=didx[np.lexsort((didx, ddep[didx]))].astype(np.int32))
 
 
 def postprocess(val, xch, nib, lane_of_np, lane_starts_np, n: int,
@@ -316,7 +321,8 @@ def postprocess(val, xch, nib, lane_of_np, lane_starts_np, n: int,
     patches val in place: succs2d is val. meta_cache (mutated) keeps what
     the plan's first call finds: the dirty chains, the node layout and the
     steady state's marker layout (STEADY_KEYS); later calls reuse them.
-    Raises RuntimeError where the fixup cannot take the dirty chains."""
+    Raises RuntimeError where the node layout breaks what the fixup
+    relies on (_node_layout); the dirty chains may run to any depth."""
     mc = meta_cache if meta_cache is not None else {}
     first = "fx_nodes" not in mc
     if first:

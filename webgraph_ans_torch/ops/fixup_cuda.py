@@ -10,9 +10,11 @@ the JAX package's fixup is XLA (its post_steady: a gather, a sort and a
 scatter a chain level), the reference the plain version is held to on the
 CPU; the kernel is held to the plain version on the card. It runs every
 chain in one launch: a block takes a path and follows it, each node
-reading its parent's list from shared memory; a path's first node waits
-on its parent's ready flag. It is built with nvcc for sm_90a into
-`webgraph_ans_torch/build/` on first use and loaded with ctypes.
+reading its parent's list from shared memory (rows of up to 64 elements
+in batches, gathered by the block and finished by one warp); a path's
+first node waits on its parent's ready flag. It is built with nvcc for
+sm_90a into `webgraph_ans_torch/build/` on first use and loaded with
+ctypes.
 
 The node layout (emit_post.build_fixup_cache, from a plan's first decode)
 cuts the dirty nodes that read a dirty parent's list into paths, each
@@ -24,9 +26,9 @@ following a node's child of the deepest subtree:
   before, else the row of the parent whose list the node reads, always an
   earlier row, or -1) and publish (1 when a row of another path reads
   this one);
-- srcs [E] int32, each row's elements in its rows' order: a flat index
-  into val (the node's own row, or a clean parent's row), or ~j for the
-  parent's j-th successor.
+- srcs [E] int32, each row's elements in its rows' order, a row's right
+  after the row before's: a flat index into val (the node's own row, or
+  a clean parent's row), or ~j for the parent's j-th successor.
 
 `emit_fixup` dispatches on the tensors' device only: CPU tensors go to the
 plain version (emit_fixup_plain, row by row in the same order), CUDA
@@ -34,7 +36,9 @@ tensors to the kernel; anything else raises. `emit_fixup.launches` counts
 the kernel's launches that run: a launch recorded into a CUDA graph
 capture is not counted but adds one to `emit_fixup.captured`, and each
 replay of that graph counts what its capture recorded (graph_decode);
-each counted launch is also a `fixup_kernel_launches` trace counter.
+each counted launch is also a `fixup_kernel_launches` trace counter, and
+adds its layout's elements to the `fixup_elements` counter
+(`emit_fixup.captured_elements` sums a capture's).
 """
 
 from __future__ import annotations
@@ -117,17 +121,19 @@ def _launch(val, nodes, srcs):
             + lib.wgt_fixup_error_string(err).decode())
     if torch.cuda.is_current_stream_capturing():
         emit_fixup.captured += 1
+        emit_fixup.captured_elements += E
     else:
-        count_launch()
+        count_launch(1, E)
     return val
 
 
-def count_launch(n: int = 1):
+def count_launch(n: int = 1, elements: int = 0):
     """n launches of the kernel that ran (eager launches or the ones a
-    replayed graph holds)."""
+    replayed graph holds), over `elements` layout elements in all."""
     if n:
         emit_fixup.launches += n
         trace.count("fixup_kernel_launches", n)
+        trace.count("fixup_elements", elements)
 
 
 def emit_fixup(val, nodes, srcs):
@@ -144,3 +150,4 @@ def emit_fixup(val, nodes, srcs):
 
 emit_fixup.launches = 0
 emit_fixup.captured = 0
+emit_fixup.captured_elements = 0

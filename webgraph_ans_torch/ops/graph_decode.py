@@ -85,9 +85,11 @@ def _pad_lanes(starts, ends, hi: int, pad_to: int):
     return starts.astype(np.int32), ends.astype(np.int32)
 
 
-def _native_split(fn: str, cost, halo, safe, num_lanes: int, *args):
+def _native_split(fn: str, cost, halo, safe, num_lanes: int, *args,
+                  cuts=()):
     """Runs the native split fn over cost [n] and halo [n + 1] (float64)
-    and safe [n] (bool, or None: every node safe), with its own args
+    and safe [n] (bool, or None: every node safe), then the pointers of
+    `cuts` (arrays of the dtypes fn takes, or None), with its own args
     after the lane count: the num_lanes + 1 lane bounds (int64), or None
     where it refuses."""
     cost = np.ascontiguousarray(cost, np.float64)
@@ -103,11 +105,17 @@ def _native_split(fn: str, cost, halo, safe, num_lanes: int, *args):
             raise ValueError(f"{fn}: {n} costs need {n} safe flags "
                              f"(got {len(safe)})")
         safe_p = native.as_ptr(safe, ctypes.c_uint8)
+    cut_p = []
+    for arr, ctype in cuts:
+        if arr is not None and len(arr) != n:
+            raise ValueError(f"{fn}: {n} costs need {n} entries a node "
+                             f"(got {len(arr)})")
+        cut_p.append(None if arr is None else native.as_ptr(arr, ctype))
     bounds = np.empty(num_lanes + 1, np.int64)
     fits = getattr(native.get_lib(), fn)(
         native.as_ptr(cost, ctypes.c_double),
-        native.as_ptr(halo, ctypes.c_double), safe_p, n, num_lanes, *args,
-        native.as_ptr(bounds, ctypes.c_int64))
+        native.as_ptr(halo, ctypes.c_double), safe_p, *cut_p, n, num_lanes,
+        *args, native.as_ptr(bounds, ctypes.c_int64))
     return bounds if fits else None
 
 
@@ -125,19 +133,59 @@ def emit_split(cost: np.ndarray, halo: np.ndarray, safe, num_lanes: int,
                          int(bool(force_unsafe)), float(target))
 
 
+# a lane cut inside a safe gap closes at the fewest crossings among the
+# bounds that fill it to this share of the target (emit_split_last)
+CUT_FILL = 0.85
+
+
 def emit_split_last(cost: np.ndarray, halo: np.ndarray, safe,
-                    num_lanes: int, target: float):
-    """The split of plans that cut only at safe nodes, in the native
-    runtime (wgt_emit_split_last): a lane that starts at a has sum
-    halo[a] + (P[b] - P[a]), P = [0, cumsum(cost)] in float64, and ends at
-    the largest safe b > a at which that sum stays within target, or at
-    n. No lane passes target, so bisected on target (min_max_split) the
+                    num_lanes: int, target: float, cross=None, gap=None):
+    """The split of plans that cut at safe nodes, in the native runtime
+    (wgt_emit_split_last): a lane that starts at a has sum halo[a] +
+    (P[b] - P[a]), P = [0, cumsum(cost)] in float64, and ends at the
+    largest safe b > a at which that sum stays within target, or at n.
+    No lane passes target, so bisected on target (min_max_split) the
     longest lane is the least of any split at safe nodes. Inputs as
-    emit_split's. Returns the num_lanes + 1 lane bounds (int64, the unused
-    lanes empty at n), or None when a lane has no such b or the nodes
-    need more lanes at this target."""
+    emit_split's.
+
+    With cross (int32 [n], chain_crossings) and gap (float64 [n],
+    safe_gaps over the same cost and safe), a safe gap longer than the
+    target is cut inside: where the node that passes the target lies in
+    such a gap and the last safe node fills the lane below CUT_FILL of
+    the target (or there is none), the lane ends at the unsafe bound
+    before that node that the fewest reference chains cross, among those
+    that fill it to CUT_FILL of the target (the last on ties; the fullest
+    where none does). Where every safe gap fits the target the bounds are
+    those without them, so a plan whose gaps all fit a mean lane (the
+    bisection's least target) keeps them at every target it tries.
+
+    Returns the num_lanes + 1 lane bounds (int64, the unused lanes empty
+    at n), or None when a lane has no such b or the nodes need more lanes
+    at this target."""
+    if (cross is None) != (gap is None) or (cross is not None
+                                            and safe is None):
+        raise ValueError("emit_split_last: cross and gap go together, "
+                         "with a safe mask")
+    if cross is not None:
+        cross = np.ascontiguousarray(cross, np.int32)
+        gap = np.ascontiguousarray(gap, np.float64)
     return _native_split("wgt_emit_split_last", cost, halo, safe,
-                         num_lanes, float(target))
+                         num_lanes, float(target), float(CUT_FILL),
+                         cuts=((cross, ctypes.c_int32),
+                               (gap, ctypes.c_double)))
+
+
+def safe_gaps(cost: np.ndarray, safe: np.ndarray) -> np.ndarray:
+    """gap [n] float64: the cost of the safe gap that holds each node, the
+    nodes from the last safe node at or before it (node 0 counts as safe)
+    to the next one (or n), which a split at safe nodes alone must keep in
+    one lane."""
+    P = np.concatenate([[0.0], np.cumsum(np.asarray(cost, np.float64))])
+    n = len(P) - 1
+    s = np.flatnonzero(np.asarray(safe, bool)[1:]) + 1
+    s = np.concatenate([[0], s, [n]])
+    g = np.searchsorted(s, np.arange(n), side="right") - 1
+    return P[s[g + 1]] - P[s[g]]
 
 
 def min_max_split(split, lo: float, hi: float, steps: int = 40):
@@ -219,6 +267,27 @@ def safe_nodes(parent: np.ndarray, has_ref: np.ndarray) -> np.ndarray:
     safe = np.ones(n, bool)
     safe[1:] = sm[1:] >= np.arange(1, n)
     return safe
+
+
+def chain_crossings(parent: np.ndarray, has_ref: np.ndarray) -> np.ndarray:
+    """cross [n] int32: the reference links that a lane boundary placed at
+    x cuts, the nodes y >= x with a reference whose parent is below x
+    (parents precede children); safe_nodes is cross == 0."""
+    n = len(parent)
+    y = np.flatnonzero(has_ref)
+    d = (np.bincount(np.asarray(parent, np.int64)[y] + 1, minlength=n + 1)
+         - np.bincount(y + 1, minlength=n + 1))
+    return np.cumsum(d[:n]).astype(np.int32)
+
+
+def unsafe_cuts(bounds, safe) -> int:
+    """The distinct lane bounds strictly inside (0, n) that are not at a
+    safe node (0 without a safe mask)."""
+    if safe is None:
+        return 0
+    b = np.unique(np.asarray(bounds, np.int64))
+    b = b[(b > 0) & (b < len(safe))]
+    return int((~np.asarray(safe, bool)[b]).sum())
 
 
 def _all_done(ok: torch.Tensor, cap: int, what: str):
@@ -610,13 +679,21 @@ class TorchGraphDecoder:
     EMIT_RING_T = 512
     # up to this window a lane may also be cut at an unsafe node (the
     # greedy split's forced cut; a 4*window halo re-decodes its chains);
-    # past it every cut is at a reference-safe node
+    # past it every cut is at a reference-safe node, or, on a plan whose
+    # longest safe gap passes CUT_GAP_LANES mean lanes (an artifact without
+    # safe breaks), also inside a safe gap longer than the target, where
+    # the fixup finishes the crossing chains. Safe breaks keep the gaps
+    # below it: cnr-2000's every 128 nodes at 1024 lanes, 0.72 of a mean
+    # lane; without them its longest gap holds 99 mean lanes.
     FORCED_CUT_WINDOW = 12
+    CUT_GAP_LANES = 4
 
     def _split_rule(self) -> str:
         """The merged-emit split's rule once degrees are known: "greedy"
         (emit_split with its forced cut) up to FORCED_CUT_WINDOW, else
-        "last_safe" (emit_split_last). The refinement follows it: a
+        "last_safe" (emit_split_last, with the reference chains' crossings
+        on plans that cut inside safe gaps, _cut_gaps, so that a gap
+        longer than the target is cut inside). The refinement follows it: a
         last_safe split holds every lane within its target, so it prices
         each node by its own rows (node_rows); a greedy split spreads each
         lane's rows evenly over its nodes (spread_rows), whose plan the
@@ -642,13 +719,19 @@ class TorchGraphDecoder:
                     and self.graph.prelude.blocks is None):
                 # deep unbounded reference chains: even the first decode
                 # splits at reference-safe nodes (a 4*window halo cannot
-                # cover them); without safe nodes this is one lane
-                if "safe_np" not in pl:
-                    pl["safe_np"] = self._safe_boundaries()
+                # cover them), each start moved back to its safe node;
+                # on a plan that cuts inside safe gaps (_cut_gaps), starts
+                # inside a gap longer than a mean lane stay where they are
+                # (the fixup finishes the chains they cut)
+                long_gap = (self._cut_gaps(pl, num_lanes)
+                            if "safe_np" not in pl else None)
                 safe_nodes = np.nonzero(pl["safe_np"])[0]
                 idx = np.searchsorted(safe_nodes, starts, side="right") - 1
                 snapped = safe_nodes[np.maximum(idx, 0)]
                 snapped[0] = 0
+                if long_gap is not None:
+                    inside = long_gap[np.minimum(starts, n - 1)]
+                    snapped = np.where(inside, starts, snapped)
                 bounds = np.unique(snapped)
                 if len(bounds) < len(starts):
                     bounds = np.concatenate(
@@ -685,10 +768,17 @@ class TorchGraphDecoder:
         halo = halo_el.astype(np.float64)
         safe = pl.get("safe_np")
         rule = self._split_rule()
-        split = (functools.partial(emit_split_last, cost, halo, safe,
-                                   num_lanes) if rule == "last_safe" else
-                 functools.partial(emit_split, cost, halo, safe, num_lanes,
-                                   True))
+        if rule == "last_safe":
+            cross = pl.get("cross_np") if safe is not None else None
+            # a safe gap longer than the target is cut inside where the
+            # reference chains are known
+            cuts = ({} if cross is None else
+                    dict(cross=cross, gap=safe_gaps(cost, safe)))
+            split = functools.partial(emit_split_last, cost, halo, safe,
+                                      num_lanes, **cuts)
+        else:
+            split = functools.partial(emit_split, cost, halo, safe,
+                                      num_lanes, True)
         lo = float(work[-1]) / num_lanes
         hi = lo * 8 + float(np.max(degs, initial=0) + halo_el.max()) + 4096
         with trace.stage("emit.split", lanes=num_lanes,
@@ -696,19 +786,38 @@ class TorchGraphDecoder:
                          rule=rule) as st:
             target, bounds = min_max_split(split, lo, hi)
             lc = lane_costs(cost, halo, bounds)
+            if self.phase_step > 1:
+                # a lane must start at an entry point: a sampled phase
+                ent = self._entries()[0]
+                bounds = ent[np.minimum(np.searchsorted(ent, bounds),
+                                        len(ent) - 1)]
+                bounds[0], bounds[-1] = 0, n
+                bounds = np.maximum.accumulate(bounds)
             st.set(target=target, max_cost=float(lc.max()),
-                   mean_cost=float(lc.mean()))
-        if self.phase_step > 1:
-            # a lane must start at an entry point: a sampled phase
-            ent = self._entries()[0]
-            bounds = ent[np.minimum(np.searchsorted(ent, bounds),
-                                    len(ent) - 1)]
-            bounds[0], bounds[-1] = 0, n
-            bounds = np.maximum.accumulate(bounds)
+                   mean_cost=float(lc.mean()),
+                   unsafe_cuts=unsafe_cuts(bounds, safe))
         starts = bounds[:-1].copy()
         ends = bounds[1:].copy()
         pl["bounds"] = (starts, ends)
         return starts, ends
+
+    def _cut_gaps(self, pl: dict, num_lanes: int):
+        """The safe nodes of a plan past FORCED_CUT_WINDOW ("safe_np"),
+        and whether its lanes are cut inside safe gaps: where its longest
+        safe gap passes CUT_GAP_LANES mean lanes (elements + 2 a node), the
+        reference chains' crossings ("cross_np", by which the split cuts
+        the gaps longer than its target), and returned, the nodes inside
+        gaps longer than a mean lane (the first call cuts inside those);
+        else "cross_np" and the return are None, and every bound is a
+        safe node."""
+        cross, degs = self._reference_chains()
+        safe = cross == 0
+        cost = degs + 2.0
+        gap = safe_gaps(cost, safe)
+        mean = cost.sum() / num_lanes
+        cut = bool(gap.max(initial=0) > self.CUT_GAP_LANES * mean)
+        pl.update(safe_np=safe, cross_np=cross if cut else None)
+        return gap > mean if cut else None
 
     def _halo(self, pl: dict) -> int:
         """The nodes a lane of plan pl decodes ahead of its start, so that
@@ -786,19 +895,27 @@ class TorchGraphDecoder:
         return pl
 
     def _reference_parents(self):
-        """(parent [n] int64, has_ref [n] bool, the lanes' token counts):
-        each node's reference target, from one aux-mode token decode at
-        2048 lanes (plan time only)."""
+        """(parent [n] int64, has_ref [n] bool, the lanes' token counts,
+        degs [n] int64): each node's reference target and outdegree, from
+        one aux-mode token decode at 2048 lanes (plan time only)."""
         out, counts, cap = self.decode_raw(2048, emit_aux=True)
         st = parse_stats(out, self.num_nodes, cap)
         return (trace.fetch(st["parent"]).astype(np.int64),
-                trace.fetch(st["depth"]) > 0, counts)
+                trace.fetch(st["depth"]) > 0, counts,
+                trace.fetch(st["d"]).astype(np.int64))
 
     def _safe_boundaries(self) -> np.ndarray:
         """safe[x] is True iff no reference chain crosses a lane boundary
         placed at x (safe_nodes over _reference_parents)."""
-        parent, has_ref, _ = self._reference_parents()
+        parent, has_ref = self._reference_parents()[:2]
         return safe_nodes(parent, has_ref)
+
+    def _reference_chains(self):
+        """(cross [n] int32, degs [n] int64): the reference links that a
+        lane boundary at x cuts (chain_crossings; x is safe where it is 0)
+        and each node's outdegree, from _reference_parents."""
+        parent, has_ref, _, degs = self._reference_parents()
+        return chain_crossings(parent, has_ref), degs
 
     def _emit_servable(self, T: int) -> bool:
         """Whether the merged-emit kernel can run a plan with a T-row ring
@@ -891,10 +1008,12 @@ class TorchGraphDecoder:
             with trace.stage("plan.capture", lanes=pl["ptrs"].shape[0]):
                 out = self._steady(pl)
                 graph = torch.cuda.CUDAGraph()
-                fixups = fixup_cuda.emit_fixup.captured
+                fx = fixup_cuda.emit_fixup
+                fixups = (fx.captured, fx.captured_elements)
                 with torch.cuda.graph(graph):
                     static = self._steady(pl)
-                fixups = fixup_cuda.emit_fixup.captured - fixups
+                fixups = (fx.captured - fixups[0],
+                          fx.captured_elements - fixups[1])
                 pl["graph"] = (graph, static, fixups)
             trace.count("decode_graph_captures")
             return out
@@ -902,7 +1021,7 @@ class TorchGraphDecoder:
         with trace.span("decode.steady"):
             graph.replay()
             decode_emit.launches += 1      # the replay runs the kernel once
-            fixup_cuda.count_launch(fixups)    # and the fixups it recorded
+            fixup_cuda.count_launch(*fixups)   # and the fixups it recorded
             return succs2d.clone(), starts_flat, degs.clone()
 
     def decode_to_adjacency_device(self, num_lanes: int = 2048,
@@ -920,14 +1039,18 @@ class TorchGraphDecoder:
         the cached-layout post-pass with no host synchronisation; on CUDA
         as one CUDA graph (_steady_graph).
 
-        What the merged-emit kernel cannot serve goes to the sort path
-        (_adjacency_via_sort_path) on the same device, with a warning that
-        names the cause, and stays there: a window past 16, a plan the
-        kernel cannot run (EmitPlanUnsupported), or a post-pass
-        RuntimeError (dirty chains deeper than its fixup bound, as on
-        high-compression artifacts without safe breaks). When the
-        reference-safe boundaries cannot be computed, the rebalanced plan
-        keeps the halo re-decode instead. A kernel's build or launch
+        Past window 12 lanes are cut at reference-safe nodes, and inside
+        a safe gap only where it is longer than a lane's target (a
+        high-compression artifact without safe breaks, whose chains run
+        thousands of nodes deep): the chains such a cut crosses leave
+        their nodes dirty, and the post-pass's fixup resolves them at any
+        depth. What the merged-emit kernel cannot serve goes to the sort
+        path (_adjacency_via_sort_path) on the same device, with a
+        warning that names the cause, and stays there: a window past 16,
+        a plan the kernel cannot run (EmitPlanUnsupported), or a
+        post-pass RuntimeError (a node layout the fixup cannot take).
+        When the reference-safe boundaries cannot be computed, the
+        rebalanced plan keeps the halo re-decode instead. A kernel's build or launch
         failure, a device error and a layout past the int32 flat indices
         (LayoutTooLarge, a ValueError naming the layout, also from the
         safe boundaries' aux-mode decode) are no such cause: they
@@ -956,12 +1079,15 @@ class TorchGraphDecoder:
         nodes (`safe_nodes`); `plan.verify` keeps the steady layout it
         verified: the fixup's rounds (the dirty-chain depth,
         `fixup_rounds`), the dirty nodes the fixup resolves each call
-        (`dirty_nodes`), the empty lanes (`empty_lanes`), all lanes
-        (`lanes`), and the longest lane's and the mean lane's rows in the
-        verifying decode (`rows_max`, `rows_mean`, the mean over all
-        lanes). Each `emit.split` keeps its rule (`rule`, `_split_rule`),
-        the bisected `target`, and the split's longest and mean lane cost
-        (`max_cost`, `mean_cost`)."""
+        (`dirty_nodes`) and their elements (`dirty_elements`, the node
+        layout's sources), the empty lanes (`empty_lanes`), all lanes
+        (`lanes`), the lane bounds not at a safe node (`unsafe_cuts`), and
+        the longest lane's and the mean lane's rows in the verifying
+        decode (`rows_max`, `rows_mean`, the mean over all lanes). Each
+        `emit.split` keeps its rule (`rule`, `_split_rule`), the bisected
+        `target`, the split's longest and mean lane cost (`max_cost`,
+        `mean_cost`) and its bounds not at a safe node
+        (`unsafe_cuts`)."""
         with trace.span("decode", lanes=num_lanes):
             return self._adjacency_device(num_lanes, launch)
 
@@ -1039,9 +1165,12 @@ class TorchGraphDecoder:
             mc, rows = pl["post_meta"], pl["rows_np"]
             step.set(fixup_rounds=int(mc["rounds"]),
                      dirty_nodes=len(mc["order_np"]),
+                     dirty_elements=int(mc["fx_srcs"].shape[0]),
                      empty_lanes=int((pl["starts_np"] >= pl["ends_np"]).sum()),
                      lanes=len(pl["starts_np"]), rows_max=int(rows.max()),
-                     rows_mean=float(rows.mean()))
+                     rows_mean=float(rows.mean()),
+                     unsafe_cuts=unsafe_cuts(pl["starts_np"],
+                                             pl.get("safe_np")))
         return succs2d, starts_flat, degs
 
     def _emit_call(self, pl: dict, num_lanes: int, launch):
