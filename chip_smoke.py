@@ -1754,8 +1754,10 @@ def fixup_hold(dec, pl, plain_on_host: bool = False) -> dict:
     launch, on fresh copies; CUDA events, median of TIMED_RUNS) beside the
     bound of the bytes the fixup needs: the node table, each element's
     source, its gathered value and its write, each read or written once
-    (bound_ms). `hold_launches` counts the hold's own calls of the kernel,
-    none of the main path."""
+    (bound_ms), and per level of the dirty chains (`us_per_level`); the
+    layout's rows that take the kernel's two-run step (`two_run_rows`,
+    and their share of the dirty nodes). `hold_launches` counts the
+    hold's own calls of the kernel, none of the main path."""
     from webgraph_ans_torch.ops import emit_cuda, fixup_cuda
 
     mc = pl["post_meta"]
@@ -1778,6 +1780,9 @@ def fixup_hold(dec, pl, plain_on_host: bool = False) -> dict:
     degs = nodes[:, 1].cpu().numpy()
     need = nodes.numel() * 4 + E * 12
     return {"rounds": mc["rounds"], "dirty_nodes": nd, "elements": E,
+            "two_run_rows": mc["two_run_rows"],
+            "two_run_share": mc["two_run_rows"] / max(nd, 1),
+            "us_per_level": t_kernel["median"] * 1e3 / max(mc["rounds"], 1),
             "parent_reads": int((srcs < 0).sum()),
             "deg_median": float(np.median(degs)), "deg_max": int(degs.max()),
             "hold_launches": fixup_cuda.emit_fixup.launches - launches,

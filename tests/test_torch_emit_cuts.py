@@ -98,6 +98,7 @@ def test_break_free_chains_reach_the_steady_merged_emit(results, name,
         assert verify.attrs["unsafe_cuts"] > 0
         assert verify.attrs["empty_lanes"] == 0
         assert verify.attrs["dirty_elements"] > verify.attrs["dirty_nodes"]
+        assert 0 < verify.attrs["two_run_rows"] <= verify.attrs["dirty_nodes"]
         assert verify.attrs["fixup_rounds"] > 192
     off, succs, E = TpuGraphDecoder(JaxGraph(
         res.prelude, res.states, res.pointers)).decode_to_csr_device(

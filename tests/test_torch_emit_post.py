@@ -305,3 +305,90 @@ def test_fixup_plain_resolves_a_path_5000_deep():
     want = resolved(val, nodes, lists)
     got = fixup_cuda.emit_fixup_plain(val.clone(), nodes, srcs)
     assert torch.equal(got, want)
+
+
+def _check_two_run_form(path_nodes, path_srcs, nodes, srcs, rows):
+    """The two-run form of a path layout: the same rows; each row's
+    sources, ~j first in ascending j, then the others in their order;
+    column 5 the row's copies where it takes the kernel's two-run step (at
+    most 64 elements that read a parent or copy nothing), else -1; `rows`
+    those rows."""
+    pn, ps = np.asarray(path_nodes, np.int64), np.asarray(path_srcs)
+    nodes, srcs = np.asarray(nodes, np.int64), np.asarray(srcs)
+    np.testing.assert_array_equal(nodes[:, :5], pn[:, :5])
+    taking = 0
+    for q, (e, d, _, link, _) in enumerate(pn[:, :5].tolist()):
+        before = ps[e:e + d]
+        j = ~before[before < 0]
+        np.testing.assert_array_equal(
+            srcs[e:e + d], np.concatenate([~np.sort(j), before[before >= 0]]),
+            err_msg=f"row {q}")
+        takes = d <= 64 and (link != -1 or len(j) == 0)
+        assert nodes[q, 5] == (len(j) if takes else -1), q
+        taking += takes
+    assert rows == taking
+
+
+def _plain(val, nodes, srcs):
+    return fixup_cuda.emit_fixup_plain(
+        val.clone(), torch.from_numpy(np.ascontiguousarray(nodes, np.int32)),
+        torch.from_numpy(np.ascontiguousarray(srcs, np.int32)))
+
+
+@pytest.mark.parametrize("name", ["dirty_3000", "deep_3000"])
+def test_node_layout_takes_the_two_run_form(channels, name, monkeypatch):
+    """The node layout a plan's first postprocess caches is its path
+    layout in the two-run form, with the count of two-run rows beside it;
+    the plain fixup gives the same val on both."""
+    adj, (val, xch, nib, lane_of, bounds, _) = channels[name]
+    real, seen = tpost.two_run_layout, []
+
+    def spy(nodes, srcs):
+        seen.append((nodes, srcs))
+        return real(nodes, srcs)
+
+    monkeypatch.setattr(tpost, "two_run_layout", spy)
+    mc = {}
+    tpost.postprocess(_t(val), _t(xch), _t(nib), lane_of, bounds,
+                      adj.num_nodes, meta_cache=mc)
+    (path_nodes, path_srcs), = seen
+    nodes, srcs = mc["fx_nodes"].numpy(), mc["fx_srcs"].numpy()
+    _check_two_run_form(path_nodes, path_srcs, nodes, srcs,
+                        mc["two_run_rows"])
+    assert 0 < mc["two_run_rows"] <= len(nodes)
+    mixed = (nodes[:, 5] > 0) & (nodes[:, 5] < nodes[:, 1])
+    assert mixed.any()   # rows that merge copies with known values
+    np.testing.assert_array_equal(_plain(_t(val), nodes, srcs).numpy(),
+                                  _plain(_t(val), path_nodes,
+                                         path_srcs).numpy())
+
+
+@pytest.mark.parametrize("seed", [5, 6, 7])
+def test_two_run_form_of_seeded_chains(seed):
+    """_node_layout on seeded dirty chains whose placeholders come out of
+    order, among holes, with ties (tests/deep_layout.py seeded_chains):
+    its two-run form, and the same val from the plain fixup on both."""
+    from deep_layout import seeded_chains
+
+    args, val = seeded_chains(seed)
+    path_nodes, path_srcs = tpost._node_layout(*args)
+    nodes, srcs, rows = tpost.two_run_layout(path_nodes, path_srcs)
+    _check_two_run_form(path_nodes, path_srcs, nodes, srcs, rows)
+    assert (nodes[:, 5] == -1).any() and rows > 0
+    want = _plain(val, path_nodes, path_srcs)
+    assert torch.equal(_plain(val, nodes, srcs), want)
+    assert not torch.equal(want, val)
+
+
+def test_two_run_form_of_a_path_5000_deep():
+    """The path 5,000 levels deep in the two-run form: every row takes the
+    two-run step, those of the long path and the one-node paths that read
+    its rows; the plain fixup resolves it level by level."""
+    from deep_layout import deep_path_layout, resolved
+
+    val, path_nodes, path_srcs, lists = deep_path_layout(5_000)
+    nodes, srcs, rows = tpost.two_run_layout(path_nodes, path_srcs)
+    _check_two_run_form(path_nodes, path_srcs, nodes, srcs, rows)
+    assert rows == len(nodes) == 5_020
+    assert torch.equal(_plain(val, nodes, srcs),
+                       resolved(val, path_nodes, lists))

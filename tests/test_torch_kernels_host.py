@@ -14,10 +14,11 @@ set before a child polls it). Every output channel must equal the plain version'
 (tolerance 0) on small artifacts that cover the grammar variants, every
 dirty row code of the merged emit, both mark_deg modes, and block sizes
 that do and do not divide the lane count; the fixup kernel on the
-node layout the post-pass caches from a run with dirty nodes and on
-seeded layouts with long lists,
-ties and many runs, also built with a shared-memory list and a run limit
-small enough that the spill region and the counting path serve; the
+node layout the post-pass caches from a run with dirty nodes, on seeded
+layouts with long lists, ties and many runs, and on seeded dirty chains
+and a path 5,000 deep in the two-run form, also built with a
+shared-memory list and a run limit small enough that the spill region
+and the counting path serve, and with batches of 3 rows; the
 encode kernels on models
 with max_folds 0, 1 and 7, a fold-threshold exponent past 31, a frame-1
 component, a real graph's model, lanes shorter than cap and a cap shorter
@@ -606,10 +607,14 @@ extern "C" void run_fixup(int* val, const int* nodes, const int* srcs,
                     work + nd + 1);
 }
 """
-# the kernel's constants, and a build whose shared-memory list and run
-# limit are small enough that the spill region and the counting path serve
+# the kernel's constants; a build whose shared-memory list and run limit
+# are small enough that the spill region and the counting path serve (and
+# a batch holds 4 elements); a build whose batches hold 3 rows, so that
+# batches hand over along a path and consumer paths start at rows inside
+# a batch, which publishes once, after its last row
 FIXUP_VARIANTS = {"default": {}, "spill_count": {"kSmemInts": 8,
-                                                 "kMaxRuns": 2}}
+                                                 "kMaxRuns": 2},
+                  "small_batch": {"kBatch": 3}}
 
 
 @pytest.fixture(scope="module")
@@ -671,7 +676,7 @@ def _seeded_layout(seed: int):
         if parent >= 0 and degs[parent] > 0:
             j = rng.integers(0, degs[parent], deg)
             own = np.where(rng.random(deg) < 0.5, ~j, own)
-        rows.append([sum(len(a) for a in srcs), deg, q, link, 0])
+        rows.append([sum(len(a) for a in srcs), deg, q, link, 0, -1])
         srcs.append(own)
     return (torch.from_numpy(val), torch.tensor(rows, dtype=torch.int32),
             torch.from_numpy(np.concatenate(srcs).astype(np.int32)))
@@ -720,12 +725,76 @@ def test_emit_fixup_host_build_resolves_a_path_5000_deep(fixup_libs,
                                                           variant, width):
     """The kernel on a layout whose one path runs 5,000 levels deep, with
     one-node paths that wait on its rows' flags: the lists resolved level
-    by level, and the plain version's. Rows of 2 elements take the warp
-    path of the host build (one thread, two slots), rows of 3 the
-    block's."""
+    by level, and the plain version's. As built (no row in the two-run
+    form) the block ranks every row, of 2 or 3 elements."""
     from deep_layout import deep_path_layout, resolved
 
     val, nodes, srcs, lists = deep_path_layout(5_000, width)
     got = _fixup_host(fixup_libs[variant], val, nodes, srcs)
     assert torch.equal(got, resolved(val, nodes, lists))
     assert torch.equal(got, emit_fixup_plain(val.clone(), nodes, srcs))
+
+
+def _i32(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32))
+
+
+@pytest.mark.parametrize("width", [2, 3])
+@pytest.mark.parametrize("variant", list(FIXUP_VARIANTS))
+def test_emit_fixup_host_build_takes_two_runs_on_a_path_5000_deep(
+        fixup_libs, variant, width):
+    """The path 5,000 levels deep in the two-run form: each row of the
+    long path mixes its own value with copies of the row before's list,
+    listed copies first; the one-node paths that wait on its rows read
+    their copies from its rows. Rows of 2 elements take the two-run step
+    of the host build (one thread, two slots), rows of 3 the block's
+    ranking."""
+    from deep_layout import deep_path_layout, resolved
+
+    val, nodes, srcs, lists = deep_path_layout(5_000, width)
+    two, tsrcs, rows = emit_post.two_run_layout(nodes, srcs)
+    assert rows == len(two) == 5_020
+    assert (two[1:5_000, 5] == width - 1).all() and two[0, 5] == 0
+    assert not torch.equal(_i32(tsrcs), srcs)
+    got = _fixup_host(fixup_libs[variant], val, _i32(two), _i32(tsrcs))
+    assert torch.equal(got, resolved(val, nodes, lists))
+
+
+def _copy_ties(nodes, srcs, val, out, limit):
+    """Two-run rows of at most `limit` elements in which a copy of the
+    parent's list equals one of the row's known values."""
+    G = val.shape[1]
+    flat, res = val.view(-1), out.view(-1)
+    ties = 0
+    for q, (e, d, _, _, _, c) in enumerate(nodes.tolist()):
+        if 0 < c < d <= limit:
+            pstart = int(nodes[q - 1, 2])
+            copies = {int(res[pstart + ~int(x) * G]) for x in srcs[e:e + c]}
+            known = {int(flat[x]) for x in srcs[e + c:e + d]}
+            ties += bool(copies & known)
+    return ties
+
+
+@pytest.mark.parametrize("seed", [5, 6, 7])
+@pytest.mark.parametrize("variant", list(FIXUP_VARIANTS))
+def test_emit_fixup_host_build_takes_two_runs_on_seeded_chains(
+        fixup_libs, variant, seed):
+    """_node_layout's layout of seeded dirty chains (tests/deep_layout.py
+    seeded_chains: placeholders out of order, holes, copies that tie with
+    known values, rows and parents on both sides of 64 elements) in the
+    two-run form: the host build equals the plain version on the layout
+    as built, and its warp path (rows of up to 2) takes two-run rows with
+    copies, some of them tied."""
+    from deep_layout import seeded_chains
+
+    args, val = seeded_chains(seed)
+    nodes, srcs = emit_post._node_layout(*args)
+    two, tsrcs, rows = emit_post.two_run_layout(nodes, srcs)
+    want = emit_fixup_plain(val.clone(), _i32(nodes), _i32(srcs))
+    got = _fixup_host(fixup_libs[variant], val, _i32(two), _i32(tsrcs))
+    assert torch.equal(got, want)
+    assert not torch.equal(want, val)
+    assert 0 < rows < len(two)
+    assert ((two[:, 1] <= 2) & (two[:, 5] > 0)).sum() >= 10
+    assert _copy_ties(two, tsrcs, val, want, 2) >= 1
+

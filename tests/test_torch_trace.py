@@ -200,11 +200,11 @@ def test_hc_store_decodes_to_the_plain_lists(hc_decoder):
 @pytest.mark.parametrize("case", ["standard", "hc"])
 def test_verify_stage_records_the_steady_layout(case, request):
     """plan.verify keeps the layout it verified: the fixup's rounds,
-    dirty nodes and their elements from the post-pass's cache, the empty
-    lanes, all lanes and the bounds not at a safe node from the plan, the
-    longest and the mean lane's rows from its decode; plan.safe keeps its
-    safe nodes. The high-compression graph's steady state has dirty chains
-    to fix up."""
+    dirty nodes, their elements and the rows that take the fixup kernel's
+    two-run step from the post-pass's cache, the empty lanes, all lanes
+    and the bounds not at a safe node from the plan, the longest and the
+    mean lane's rows from its decode; plan.safe keeps its safe nodes. The
+    high-compression graph's steady state has dirty chains to fix up."""
     if case == "hc":
         dec, _, stages = request.getfixturevalue("hc_decoder")
         lanes = HC_LANES
@@ -219,6 +219,7 @@ def test_verify_stage_records_the_steady_layout(case, request):
         "lanes": len(pl["starts_np"]), "fixup_rounds": mc["rounds"],
         "dirty_nodes": len(mc["order_np"]),
         "dirty_elements": int(mc["fx_srcs"].shape[0]),
+        "two_run_rows": mc["two_run_rows"],
         "empty_lanes": int((pl["starts_np"] >= pl["ends_np"]).sum()),
         "rows_max": int(pl["rows_np"].max()),
         "rows_mean": float(pl["rows_np"].mean()),
@@ -229,6 +230,8 @@ def test_verify_stage_records_the_steady_layout(case, request):
     assert safe.attrs == {"safe_nodes": int(pl["safe_np"].sum())}
     if case == "hc":
         assert 1 <= verify.attrs["fixup_rounds"] <= verify.attrs[
+            "dirty_nodes"]
+        assert 0 < verify.attrs["two_run_rows"] <= verify.attrs[
             "dirty_nodes"]
 
 

@@ -29,27 +29,48 @@
 // artifact, 1.2 MB at window 7); the work is ordered by chain depth,
 // because a placeholder indexes the parent's *sorted* list, so its time
 // is the dependent chain's latency: the longest path's rows one after
-// another (4,464 on that artifact), and its next longest. What the design
-// does about it:
+// another (4,464 on that artifact), and its next longest. The rule of the
+// design: a path's per-row chain holds only the work that waits on the
+// parent's sorted list. What it does:
 // - one persistent launch: blocks take rows from an atomic counter, a
 //   path's first row before the rest, and follow the path to its end;
 // - a path's rows of at most 64 elements (nearly all) go in batches of up
-//   to kBatch rows: the whole block gathers the batch's own values with
-//   one set of loads, then one warp finishes the rows in order from
+//   to kBatch rows, which the first warp finishes one after another from
 //   shared memory and registers, with warp barriers only; along a path
 //   the parent's sorted list stays in shared memory, and no flag is read;
+// - batches prepared ahead: while the first warp finishes a batch, the
+//   other warps prepare the next in a second buffer (its headers, its own
+//   values in one set of loads, and for each two-run row its known values
+//   sorted into one run and its copies' mask); the batch boundary's block
+//   barrier hands the buffer over. A path's first batch is prepared by
+//   the whole block;
+// - two runs: the layout (emit_post.two_run_layout) lists a row's copies
+//   of its parent's list first, in ascending position j, so their values
+//   (the parent's sorted list at those positions) form one non-decreasing
+//   run; the known values, sorted ahead, form the other. On the chain an
+//   element's rank is its place in its run plus the elements of the other
+//   run below it, counted by broadcasting the shorter run over the warp:
+//   one ballot an element, with no dependent load, no search and no run
+//   to find. Rows on long reference chains copy nearly all of their
+//   parent's list, so the shorter run is a few known values. A path's
+//   first row reads its copies from the other path's rows;
+// - a longer row (or one the layout left out of that form) is ranked by
+//   the whole block: an emitted dirty list is a few sorted runs (copies,
+//   intervals, residuals), so each element's rank is its place in its
+//   run plus a binary search in each other run, in shared memory for
+//   lists up to kSmemInts elements (a device scratch region beyond); a
+//   list of more than kMaxRuns runs is ranked by counting;
 // - no copy of the channel: the lists are patched into val itself;
 // - where a path starts at a dirty parent of another path, the parent
-//   publishes a ready flag (a barrier, then one thread's release store)
-//   and the first row polls it with acquire loads, sleeping between
-//   polls, and reads the parent's rows past L1 (__ldcg). Only a path's
-//   first row waits, and on an earlier path's row, so a wait cannot
-//   deadlock, whatever number of blocks is resident;
-// - ranks, not a sort: an emitted dirty list is a few sorted runs
-//   (copies, intervals, residuals), so each element's rank is its place
-//   in its run plus a binary search in each other run, in shared memory
-//   for lists up to kSmemInts elements (a device scratch region beyond);
-//   a longer row's list of more than kMaxRuns runs is ranked by counting;
+//   publishes a ready flag and the first row polls it with acquire loads,
+//   sleeping between polls, and reads the parent's rows past L1 (__ldcg).
+//   A batch publishes once, after its last row: one fence, then the flags
+//   of its rows that another path reads; a longer row publishes after its
+//   block barrier (one thread's release store). Only a path's first row
+//   waits, and on a row of an earlier path; a batch holds rows of one
+//   path, of which only the first may wait, so finishing the batch that
+//   publishes a row waits on earlier paths alone. A wait cannot deadlock,
+//   whatever number of blocks is resident;
 // - wide, shallow layouts (cnr-2000: 760 nodes in 4 levels, lists of
 //   ~120 elements) spread over every SM: one block a path.
 
@@ -59,8 +80,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kSmemInts = 2048;
+constexpr int kBatchInts = kSmemInts / 2;   // elements a batch holds at most
 constexpr int kMaxRuns = 32;
-constexpr int kCols = 5;
+constexpr int kCols = 6;
 constexpr int kFollows = -2;   // a row's link: it continues the row before
 constexpr int kWarp = 32;
 constexpr int kBatch = 64;     // rows a batch holds at most
@@ -96,9 +118,30 @@ __device__ __forceinline__ unsigned warp_ballot(bool p) {
 #endif
 }
 
+// Lane `from`'s v, to every lane.
+__device__ __forceinline__ int warp_shfl(int v, int from) {
+#ifdef __CUDA_ARCH__
+  return __shfl_sync(0xffffffffu, v, from);
+#else
+  return v;
+#endif
+}
+
 __device__ __forceinline__ void warp_sync() {
 #ifdef __CUDA_ARCH__
   __syncwarp();
+#endif
+}
+
+// The barrier of the threads that prepare a batch: the block, or the n
+// threads past the first warp (named barrier 1).
+__device__ __forceinline__ void prep_sync(bool all, int n) {
+  if (all) {
+    __syncthreads();
+    return;
+  }
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.sync 1, %0;" ::"r"(n) : "memory");
 #endif
 }
 
@@ -108,11 +151,27 @@ __device__ __forceinline__ void sleep_ns(int ns) {
 #endif
 }
 
-// The ready flags' release (after the rows' writes) and acquire (before
-// the parent's rows are read), at the GPU's scope.
+// The ready flags, at the GPU's scope: a release store (after a longer
+// row's writes), a fence and relaxed stores (after a batch's), and the
+// acquire load (before the parent's rows are read).
 __device__ __forceinline__ void store_release(int* p, int v) {
 #ifdef __CUDA_ARCH__
   asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+#else
+  *p = v;
+#endif
+}
+
+__device__ __forceinline__ void fence_release() {
+#ifdef __CUDA_ARCH__
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+#endif
+}
+
+__device__ __forceinline__ void store_relaxed(int* p, int v) {
+#ifdef __CUDA_ARCH__
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
                : "memory");
 #else
   *p = v;
@@ -137,37 +196,128 @@ __device__ __forceinline__ void wait_ready(const int* flag) {
     sleep_ns(ns);
 }
 
+// A batch's row as the first warp finishes it: its length, first output
+// row, link and copies, its elements in the batch buffer and the two the
+// lane holds.
+struct Row {
+  int n, start, link, C, va, vb;
+  int* cur;
+};
+
+// A batch's rows in shared memory (their elements are in a buffer of
+// kBatchInts ints beside it): the rows' headers, each row's first element
+// in the buffer (off[len]: the batch's elements), the number of rows,
+// whether one of them publishes, and whether the next batch of its path
+// is prepared in the other buffer.
+struct Batch {
+  int hdr[kBatch][kCols];
+  int off[kBatch + 1];
+  int len, publish, next;
+};
+
+// Prepares the batch of rows from q into bt and cur, by the threads p in
+// [0, P) (whole warps of W lanes; the whole block with `all`): the rows
+// that follow q on its path, of at most wmax elements each, while their
+// elements fit, all in the two-run form (column 5, their copies, >= 0):
+// their own values gathered, placeholders kept as ~j, and in each row the
+// known values after the copies sorted into one run.
+__device__ void prepare(Batch& bt, int* cur, int q, const int* val,
+                        const int* __restrict__ nodes,
+                        const int* __restrict__ srcs, int nd, int wmax,
+                        int p, int P, int W, bool all) {
+  for (int i = p; i < kBatch * kCols; i += P) {
+    const int r = q + i / kCols, c = i % kCols;
+    bt.hdr[i / kCols][c] = r < nd ? nodes[kCols * q + i] : (c == 3 ? -1 : 0);
+  }
+  prep_sync(all, P);
+  if (p == 0) {
+    int b = 0, off = 0, pub = 0;
+    for (; b < kBatch; ++b) {
+      const int* h = bt.hdr[b];
+      if (b > 0 && (h[3] != kFollows || h[0] != bt.hdr[0][0] + off)) break;
+      if (h[1] > wmax || h[5] < 0 || off + h[1] > kBatchInts) break;
+      bt.off[b] = off;
+      off += h[1];
+      pub |= h[4];
+    }
+    bt.off[b] = off;
+    bt.len = b;
+    bt.publish = pub;
+  }
+  prep_sync(all, P);
+  const int B = bt.len, e0 = bt.hdr[0][0];
+  for (int i = p; i < bt.off[B]; i += P) {
+    const int s = srcs[e0 + i];
+    cur[i] = s >= 0 ? val[s] : s;
+  }
+  prep_sync(all, P);
+  // a warp a row, each lane holding the elements at slots lane, lane + W
+  const int lane = p % W, ka = lane, kb = lane + W;
+  for (int b = p / W; b < B; b += P / W) {
+    const int n = bt.hdr[b][1], C = bt.hdr[b][5];
+    int* row = cur + bt.off[b];
+    const int va = ka < n ? row[ka] : 0, vb = kb < n ? row[kb] : 0;
+    int ra = 0, rb = 0;   // places among the known values
+    for (int k = C; k < n; ++k) {
+      const int u = row[k];
+      ra += u < va || (u == va && k < ka);
+      rb += u < vb || (u == vb && k < kb);
+    }
+    warp_sync();
+    if (ka >= C && ka < n) row[C + ra] = va;
+    if (kb >= C && kb < n) row[C + rb] = vb;
+  }
+}
+
+// Row b of batch bt (elements in cb), for the lane holding slots ka, kb.
+__device__ __forceinline__ Row load_row(const Batch& bt, int* cb, int b,
+                                        int ka, int kb) {
+  const int* h = bt.hdr[b];
+  Row r;
+  r.n = h[1];
+  r.start = h[2];
+  r.link = h[3];
+  r.C = h[5];
+  r.cur = cb + bt.off[b];
+  r.va = ka < r.n ? r.cur[ka] : 0;
+  r.vb = kb < r.n ? r.cur[kb] : 0;
+  return r;
+}
+
 // nodes: [nd, kCols] int32 rows (element base, degree, flat index of the
-// first output row, link, publish), a path's rows one after another, the
-// paths in the order of their first rows' chain depth. link: kFollows
-// when the row's parent is the row before (its list is in shared memory),
-// else the row of the parent whose output rows it reads, or -1. publish:
-// 1 when a row of another path reads this one (it sets its flag). srcs:
-// [E] int32 element sources (>= 0: val index; < 0: ~j, the parent's j-th
+// first output row, link, publish, copies), a path's rows one after
+// another, the paths in the order of their first rows' chain depth. link:
+// kFollows when the row's parent is the row before (its list is in shared
+// memory), else the row of the parent whose output rows it reads, or -1.
+// publish: 1 when a row of another path reads this one (it sets its
+// flag). copies: in a two-run row, the number of its first sources that
+// copy the parent's list (in ascending position), else -1. srcs: [E]
+// int32 element sources (>= 0: val index; < 0: ~j, the parent's j-th
 // successor). val is read and patched in place, so its loads are plain
 // (no read-only path); the values at the sources are successors, never
 // negative. flags [nd] and *next arrive zeroed; spill holds 2 E ints for
 // lists past kSmemInts.
 //
-// A path's rows of at most 2 W elements (W = 32 lanes on the card) go in
-// batches: the whole block loads the headers of up to kBatch rows that
-// follow one another with their elements one after another, and gathers
-// all their own values at once (placeholders kept as ~j); then the first
-// warp finishes the batch's rows one by one, each lane holding the
-// elements at slots lane and lane + W, with no global load and no block
-// barrier, while the other warps wait: its runs from two ballots, each
-// element's rank from binary searches in the other runs. A longer row is
-// ranked by the whole block from its runs.
+// A path's two-run rows of at most 2 W elements (W = 32 lanes on the
+// card) go in batches (prepare); the first warp finishes the batch's rows
+// one by one, each lane holding the elements at slots lane and lane + W,
+// with no global load but a first row's copies and no block barrier. Any
+// other row is ranked by the whole block from its runs.
 __global__ void __launch_bounds__(kThreads) emit_fixup_kernel(
     int* val, const int* __restrict__ nodes, const int* __restrict__ srcs,
     int nd, int E, int G, int* flags, int* next, int* spill) {
-  __shared__ int cur_s[kSmemInts], list_s[2][kSmemInts];
+  __shared__ Batch bat_s[2];
+  // batch buffer b at cur_s + b * kBatchInts; a longer row's elements
+  __shared__ int cur_s[2 * kBatchInts], list_s[2][kSmemInts];
   __shared__ int runs_s[kMaxRuns];
-  __shared__ int hdr_s[kBatch][kCols], off_s[kBatch + 1];
-  __shared__ int wruns_s[2 * kWarp + 1];
-  __shared__ int row_s, nrun_s, batch_s;
+  __shared__ int row_s, nrun_s;
   const int t = threadIdx.x, T = blockDim.x;
   const int W = T < kWarp ? T : kWarp;   // the batches' lanes
+  const int wmax = 2 * W < kBatchInts ? 2 * W : kBatchInts;
+  // the other warps prepare the next batch while the first finishes one;
+  // a block of one warp prepares it first, then finishes
+  const bool split = T > W;
+  const int p = split ? t - W : t, P = split ? T - W : T;
   for (;;) {
     if (t == 0) row_s = atomicAdd(next, 1);
     __syncthreads();
@@ -176,106 +326,110 @@ __global__ void __launch_bounds__(kThreads) emit_fixup_kernel(
     if (q >= nd) break;
     if (nodes[kCols * q + 3] == kFollows) continue;   // its path's block
     const int* prev = nullptr;    // the sorted list of the row before
-    int side = 0;
+    int side = 0, buf = 0;        // the lists' and the batches' buffer
+    bool ready = false;           // the batch from q is prepared
     for (;;) {
-      if (nodes[kCols * q + 1] <= 2 * W) {
-        // a batch from row q: the headers, then its length and offsets
-        for (int i = t; i < kBatch * kCols; i += T) {
-          const int r = q + i / kCols, c = i % kCols;
-          hdr_s[i / kCols][c] = r < nd ? nodes[kCols * q + i]
-                                       : (c == 3 ? -1 : 0);
+      if (ready || (nodes[kCols * q + 1] <= wmax &&
+                    nodes[kCols * q + 5] >= 0)) {
+        Batch& bt = bat_s[buf];
+        int* const cb = cur_s + buf * kBatchInts;
+        if (!ready) {
+          prepare(bt, cb, q, val, nodes, srcs, nd, wmax, t, T, W, true);
+          __syncthreads();
         }
-        __syncthreads();
-        if (t == 0) {
-          int b = 0, off = 0;
-          for (; b < kBatch; ++b) {
-            const int* h = hdr_s[b];
-            if (b > 0 && (h[3] != kFollows || h[0] != hdr_s[0][0] + off))
-              break;
-            if (h[1] > 2 * W || off + h[1] > kSmemInts) break;
-            off_s[b] = off;
-            off += h[1];
-          }
-          off_s[b] = off;
-          batch_s = b;
+        const int B = bt.len, qn = q + B;
+        if (!split || t >= W) {   // the first warp does not wait on it
+          const bool more = qn < nd && nodes[kCols * qn + 3] == kFollows &&
+                            nodes[kCols * qn + 1] <= wmax &&
+                            nodes[kCols * qn + 5] >= 0;
+          if (p == 0) bt.next = more;
+          if (more)
+            prepare(bat_s[buf ^ 1], cur_s + (buf ^ 1) * kBatchInts, qn,
+                    val, nodes, srcs, nd, wmax, p, P, W, !split);
         }
-        __syncthreads();
-        const int B = batch_s, e0 = hdr_s[0][0];
-        for (int i = t; i < off_s[B]; i += T) {
-          const int s = srcs[e0 + i];
-          cur_s[i] = s >= 0 ? val[s] : s;
-        }
-        __syncthreads();
         if (t < W) {
-          const int lane = t;
+          const int lane = t, ka = lane, kb = lane + W;
+          Row r = load_row(bt, cb, 0, ka, kb);
           for (int b = 0; b < B; ++b) {
-            const int* h = hdr_s[b];
-            const int n = h[1], link = h[3], off = off_s[b];
-            int va = lane < n ? cur_s[off + lane] : 0;
-            int vb = lane + W < n ? cur_s[off + lane + W] : 0;
-            if (link >= 0) {
-              if (lane == 0) wait_ready(flags + link);
-              warp_sync();
-              const int* parent = val + nodes[kCols * link + 2];
-              if (lane < n && va < 0)
-                va = __ldcg(parent + static_cast<long long>(~va) * G);
-              if (lane + W < n && vb < 0)
-                vb = __ldcg(parent + static_cast<long long>(~vb) * G);
-            } else if (link == kFollows) {
-              if (lane < n && va < 0) va = prev[~va];
-              if (lane + W < n && vb < 0) vb = prev[~vb];
-            }
-            // the row's elements in shared memory, then its sorted runs:
-            // run starts where an element is below the one before
-            int* cur = cur_s + off;
-            if (lane < n) cur[lane] = va;
-            if (lane + W < n) cur[lane + W] = vb;
-            warp_sync();
-            const bool da = lane > 0 && lane < n && cur[lane - 1] > va;
-            const bool db = lane + W < n && cur[lane + W - 1] > vb;
-            const unsigned ma = warp_ballot(da), mb = warp_ballot(db);
-            const unsigned below = (1u << lane) - 1u;   // lanes before
-            const int na = popc(ma);
-            if (lane == 0) wruns_s[0] = 0;
-            if (da) wruns_s[1 + popc(ma & below)] = lane;
-            if (db) wruns_s[1 + na + popc(mb & below)] = lane + W;
-            warp_sync();
-            const int R = 1 + na + popc(mb);
-            // rank = elements below v, and equal ones before it: its place
-            // in its run, and a search in each other run
-            const int r_a = popc(ma & (below | (1u << lane)));
-            const int r_b = na + popc(mb & (below | (1u << lane)));
-            int ra = lane - wruns_s[r_a], rb = lane + W - wruns_s[r_b];
-            for (int j = 0; j < R; ++j) {
-              const int lo = wruns_s[j], hi = j + 1 < R ? wruns_s[j + 1] : n;
-              if (j != r_a && lane < n)
-                ra += count_below(cur, lo, hi, va, j < r_a);
-              if (j != r_b && lane + W < n)
-                rb += count_below(cur, lo, hi, vb, j < r_b);
-            }
-            int* dst = val + h[2];
+            // the next row's fields, which do not wait on this row
+            const Row nx = load_row(bt, cb, b + 1 < B ? b + 1 : b, ka, kb);
+            const int n = r.n, C = r.C;
+            int va = r.va, vb = r.vb, ra = ka, rb = kb;
+            if (C > 0) {
+              // two runs: the copies at [0, C), resolved from the
+              // parent's list, and the known values at [C, n), sorted
+              // ahead. An element's rank is its place in its run plus
+              // the elements of the other run below it (a known value
+              // counts the copies below it, a copy the known values at
+              // or below it), counted by broadcasting the shorter run
+              // over the warp, one ballot an element
+              const int K = n - C;
+              const bool ca = ka < C, cbb = kb < C;
+              const bool xa = !ca && ka < n, xb = !cbb && kb < n;
+              if (r.link >= 0) {   // a path's first row: another path's
+                if (lane == 0) wait_ready(flags + r.link);   // rows
+                warp_sync();
+                const int* parent = val + nodes[kCols * r.link + 2];
+                if (ca)
+                  va = __ldcg(parent + static_cast<long long>(~va) * G);
+                if (cbb)
+                  vb = __ldcg(parent + static_cast<long long>(~vb) * G);
+              } else {
+                if (ca) va = prev[~va];
+                if (cbb) vb = prev[~vb];
+              }
+              ra = ca ? ka : ka - C;
+              rb = cbb ? kb : kb - C;
+              if (K <= C) {
+                const int* known = r.cur + C;
+                for (int i = 0; i < K; ++i) {
+                  const int u = known[i];
+                  ra += ca && u <= va;
+                  rb += cbb && u <= vb;
+                  const int below = popc(warp_ballot(ca && va < u)) +
+                                    popc(warp_ballot(cbb && vb < u));
+                  if (ka == C + i) ra += below;
+                  if (kb == C + i) rb += below;
+                }
+              } else {   // fewer copies than known values: all in slot a
+                for (int k = 0; k < C; ++k) {
+                  const int c = warp_shfl(va, k);
+                  ra += xa && c < va;
+                  rb += xb && c < vb;
+                  const int upto = popc(warp_ballot(xa && va <= c)) +
+                                   popc(warp_ballot(xb && vb <= c));
+                  if (ka == k) ra += upto;
+                }
+              }
+            }   // no copy: the known values alone, already sorted
+            int* dst = val + r.start;
             int* sorted = list_s[side];
-            if (lane < n) {
+            if (ka < n) {
               dst[static_cast<long long>(ra) * G] = va;
               sorted[ra] = va;
             }
-            if (lane + W < n) {
+            if (kb < n) {
               dst[static_cast<long long>(rb) * G] = vb;
               sorted[rb] = vb;
             }
             warp_sync();
-            if (h[4] && lane == 0) store_release(flags + q + b, 1);
             prev = sorted;
             side ^= 1;
+            r = nx;
+          }
+          if (bt.publish) {   // the batch's rows that other paths read
+            fence_release();
+            for (int b = lane; b < B; b += W)
+              if (bt.hdr[b][4]) store_relaxed(flags + q + b, 1);
           }
         }
         __syncthreads();
-        if (t >= W) {   // the warp's side and list, as it left them
-          side ^= B & 1;
-          prev = list_s[side ^ 1];
-        }
-        q += B;
-        if (q >= nd || nodes[kCols * q + 3] != kFollows) break;
+        ready = bt.next;
+        if (t >= W) side ^= B & 1;   // the warp's side and list, as it
+        prev = list_s[side ^ 1];     // left them
+        q = qn;
+        buf ^= 1;
+        if (!ready && (q >= nd || nodes[kCols * q + 3] != kFollows)) break;
         continue;
       }
       const int* row = nodes + kCols * q;
@@ -376,7 +530,7 @@ int resident_blocks() {
 
 }  // namespace
 
-// val: [S, G] int32 channel, patched in place; nodes [nd, 5], srcs [E]
+// val: [S, G] int32 channel, patched in place; nodes [nd, 6], srcs [E]
 // int32 (see the kernel); work: nd + 1 + 2 E int32, the first nd + 1
 // zeroed (ready flags, the row counter), then the spill region. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for bad sizes or no resident block.

@@ -141,8 +141,8 @@ def _expand_spans(len_n, mask_n, Dcap: int):
 
 def _node_layout(mc: dict, deg, startsF, G: int, order, ordl, rowf, vals,
                  codes):
-    """The fixup kernel's node layout (ops/fixup_cuda.py): (nodes [nd, 5],
-    srcs [E]) int32 numpy, from the dirty nodes' rows in fixup order
+    """The fixup kernel's path layout (ops/fixup_cuda.py): (nodes [nd, 5],
+    srcs [E]) int64 numpy, from the dirty nodes' rows in fixup order
     (ordl: each row's ordinal in order; rowf, vals, codes: its flat index
     into val, value and code). The dirty nodes that read a dirty parent's
     list form a forest; it is cut into paths, each following a node's
@@ -209,6 +209,38 @@ def _node_layout(mc: dict, deg, startsF, G: int, order, ordl, rowf, vals,
     return nodes, src[is_el][pos + np.arange(len(pos))]
 
 
+# a two-run row's elements at most: the card's warp path (two a lane)
+TWO_RUN_MAX = 64
+
+
+def two_run_layout(nodes, srcs):
+    """A path layout (_node_layout's columns, or the first five of a node
+    table) in the fixup kernel's two-run form: (nodes [nd, 6], srcs [E],
+    two_run_rows). Within each row the sources that copy the dirty
+    parent's list (~j) come first, in ascending j, then the others in
+    their order; the order of a row's sources does not change its sorted
+    list. Column 5 is the row's number of copies where it takes the
+    kernel's two-run step, else -1 (the kernel's block ranks it over the
+    runs it finds): a row of at most TWO_RUN_MAX elements that reads a
+    parent, or copies nothing. two_run_rows counts those rows."""
+    nodes = np.asarray(nodes, np.int64)[:, :5]
+    srcs = np.asarray(srcs, np.int64)
+    nd = len(nodes)
+    deg, link = nodes[:, 1], nodes[:, 3]
+    row = np.repeat(np.arange(nd), deg)
+    k = np.arange(len(row)) - np.repeat(np.cumsum(deg) - deg, deg)
+    at = np.repeat(nodes[:, 0], deg) + k
+    s = srcs[at]
+    copy = s < 0
+    s = s[np.lexsort((np.where(copy, ~s, (1 << 40) + k), row))]
+    out = srcs.copy()
+    out[at] = s
+    copies = np.bincount(row, copy, minlength=nd).astype(np.int64)
+    two = (deg <= TWO_RUN_MAX) & ((link != -1) | (copies == 0))
+    nodes = np.concatenate([nodes, np.where(two, copies, -1)[:, None]], 1)
+    return nodes, out, int(two.sum())
+
+
 def fixup_provider(val, nib):
     """build_fixup_cache's val_np_provider over one decode's val and nib
     channels: (values, codes) numpy at flat rows."""
@@ -230,16 +262,18 @@ def fixup_provider(val, nib):
 
 def build_fixup_cache(mc: dict, tabs: dict, lane_of_np, val_np_provider):
     """The fixup's node layout of a plan's first decode, on the node
-    tables' device: "fx_nodes" [nd, 5] and "fx_srcs" [E] int32 (empty
-    without dirty nodes). Reads the dirty nodes in fixup order, their
-    parents and chain depths from mc (_dirty_chains), and the node tables
-    `tabs` of the decode; values are never cached.
+    tables' device: "fx_nodes" [nd, 6] and "fx_srcs" [E] int32 (empty
+    without dirty nodes), the path layout (_node_layout) in the kernel's
+    two-run form (two_run_layout), and the count of rows that take the
+    two-run step ("two_run_rows"). Reads the dirty nodes in fixup order,
+    their parents and chain depths from mc (_dirty_chains), and the node
+    tables `tabs` of the decode; values are never cached.
 
     val_np_provider(rowf int64) -> (values, codes) numpy: the decode's val
     channel and row codes at flat rows (fixup_provider)."""
     dev = tabs["deg"].device
     order = mc["order_np"].astype(np.int64)
-    nodes, srcs = np.zeros((0, 5), np.int32), np.zeros(0, np.int32)
+    nodes, srcs, two_run = np.zeros((0, 6), np.int32), np.zeros(0), 0
     if len(order):
         G = tabs["codes"].shape[1]
         deg = trace.fetch(tabs["deg"]).astype(np.int64)
@@ -251,8 +285,9 @@ def build_fixup_cache(mc: dict, tabs: dict, lane_of_np, val_np_provider):
         k = np.arange(len(ordl)) - np.repeat(np.cumsum(ln) - ln, ln)
         rowf = startsF[order][ordl] + k * G
         vals, codes = val_np_provider(rowf)
-        nodes, srcs = _node_layout(mc, deg, startsF, G, order, ordl, rowf,
-                                   vals, codes)
+        nodes, srcs, two_run = two_run_layout(*_node_layout(
+            mc, deg, startsF, G, order, ordl, rowf, vals, codes))
+    mc["two_run_rows"] = two_run
     mc["fx_nodes"] = trace.upload(np.ascontiguousarray(nodes, np.int32), dev)
     mc["fx_srcs"] = trace.upload(np.ascontiguousarray(srcs, np.int32), dev)
 

@@ -11,8 +11,10 @@ scatter a chain level), the reference the plain version is held to on the
 CPU; the kernel is held to the plain version on the card. It runs every
 chain in one launch: a block takes a path and follows it, each node
 reading its parent's list from shared memory (rows of up to 64 elements
-in batches, gathered by the block and finished by one warp); a path's
-first node waits on its parent's ready flag. It is built with nvcc for
+in batches, which the block's other warps prepare while one warp finishes
+the batch before; a two-run row merges its copies with its known values,
+sorted ahead); a path's first node waits on its parent's ready flag, which
+a batch publishes once, after its last row. It is built with nvcc for
 sm_90a into `webgraph_ans_torch/build/` on first use and loaded with
 ctypes.
 
@@ -20,15 +22,17 @@ The node layout (emit_post.build_fixup_cache, from a plan's first decode)
 cuts the dirty nodes that read a dirty parent's list into paths, each
 following a node's child of the deepest subtree:
 
-- nodes [nd, 5] int32, a path's rows one after another, the paths in the
+- nodes [nd, 6] int32, a path's rows one after another, the paths in the
   order of their first nodes' (chain depth, node): element base, degree,
   flat index of the first output row, link (-2 when the parent is the row
   before, else the row of the parent whose list the node reads, always an
-  earlier row, or -1) and publish (1 when a row of another path reads
-  this one);
-- srcs [E] int32, each row's elements in its rows' order, a row's right
-  after the row before's: a flat index into val (the node's own row, or
-  a clean parent's row), or ~j for the parent's j-th successor.
+  earlier row, or -1), publish (1 when a row of another path reads this
+  one) and copies (in a two-run row, the number of its first sources
+  that copy the parent's list, in ascending position; else -1);
+- srcs [E] int32, each row's elements, a row's right after the row
+  before's: a flat index into val (the node's own row, or a clean
+  parent's row), or ~j for the parent's j-th successor; a two-run row's
+  copies first (emit_post.two_run_layout).
 
 `emit_fixup` dispatches on the tensors' device only: CPU tensors go to the
 plain version (emit_fixup_plain, row by row in the same order), CUDA
@@ -89,7 +93,7 @@ def emit_fixup_plain(val, nodes, srcs):
     G = val.shape[1]
     out = val.view(-1)
     table = nodes.tolist()
-    for q, (ebase, deg, start, link, _) in enumerate(table):
+    for q, (ebase, deg, start, link, *_) in enumerate(table):
         s = srcs[ebase:ebase + deg].long()
         parent = table[q - 1 if link == FOLLOWS else max(link, 0)][2]
         v = torch.where(s >= 0, out[s.clamp(min=0)],
@@ -105,7 +109,7 @@ def _launch(val, nodes, srcs):
     nd, E = nodes.shape[0], srcs.shape[0]
     check = cuda_build.check
     check(val, "val", torch.int32, (S, G), dev)
-    check(nodes, "nodes", torch.int32, (nd, 5), dev)
+    check(nodes, "nodes", torch.int32, (nd, 6), dev)
     check(srcs, "srcs", torch.int32, (E,), dev)
     lib = _load()
     # ready flags and the row counter (zeroed), then the spill region

@@ -1080,10 +1080,12 @@ class TorchGraphDecoder:
         verified: the fixup's rounds (the dirty-chain depth,
         `fixup_rounds`), the dirty nodes the fixup resolves each call
         (`dirty_nodes`) and their elements (`dirty_elements`, the node
-        layout's sources), the empty lanes (`empty_lanes`), all lanes
-        (`lanes`), the lane bounds not at a safe node (`unsafe_cuts`), and
-        the longest lane's and the mean lane's rows in the verifying
-        decode (`rows_max`, `rows_mean`, the mean over all lanes). Each
+        layout's sources), the layout's rows that take the fixup kernel's
+        two-run step (`two_run_rows`), the empty lanes (`empty_lanes`),
+        all lanes (`lanes`), the lane bounds not at a safe node
+        (`unsafe_cuts`), and the longest lane's and the mean lane's rows
+        in the verifying decode (`rows_max`, `rows_mean`, the mean over
+        all lanes). Each
         `emit.split` keeps its rule (`rule`, `_split_rule`), the bisected
         `target`, the split's longest and mean lane cost (`max_cost`,
         `mean_cost`) and its bounds not at a safe node
@@ -1166,6 +1168,7 @@ class TorchGraphDecoder:
             step.set(fixup_rounds=int(mc["rounds"]),
                      dirty_nodes=len(mc["order_np"]),
                      dirty_elements=int(mc["fx_srcs"].shape[0]),
+                     two_run_rows=int(mc["two_run_rows"]),
                      empty_lanes=int((pl["starts_np"] >= pl["ends_np"]).sum()),
                      lanes=len(pl["starts_np"]), rows_max=int(rows.max()),
                      rows_mean=float(rows.mean()),
