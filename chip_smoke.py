@@ -22,7 +22,10 @@ without the graph, and at 4096 lanes; its fixup kernel, emit_fixup, held
 bit for bit against its plain version and timed beside its bound), and
 block-parallel compression
 (store with 512 encode blocks and the device model search, its artifact
-decoded back through both device paths and the sequential reader). Then
+decoded back through both device paths and the sequential reader, the
+merged emit's steady plan split inside the encode blocks and timed
+beside the serial artifact's, and a second store byte for byte the
+first). Then
 the paths built on the same kernels: the sort-path reconstruction
 (decode_to_csr_device, the aux-mode decode and the device reconstruction)
 on cnr-2000 and on its high-compression artifact (window 16, unbounded
@@ -64,11 +67,11 @@ random-access forms with the on-demand and serve protocols, each list
 for list against the generated graph, with
 each phase's peak device memory and its int32 layouts' largest sizes as
 shares of 2^31, and each kernel timed at those shapes and held against its
-plain version there: the token, aux-mode and serial merged-emit launches
-on a slice of lanes holding the plan's longest lane at the plan's cap, the
-block plan's merged emit and the encode on every lane at a shorter cap
-(a plain run to their caps of over 100,000 steps would not finish in the
-run), each with the plain version's seconds per step. These holds, of
+plain version there: the token, aux-mode and both merged-emit plans'
+launches on a slice of lanes holding the plan's longest lane at the
+plan's cap, the on-demand plan's merged emit and the encode on every lane
+at a shorter cap (a plain run to their caps of over 30,000 steps would
+not finish in the run), each with the plain version's seconds per step. These holds, of
 the hc mode's and the scale phases' shapes, run their plain versions on
 copies of the inputs on the host CPU, in helper processes beside the main
 path, and are settled before the kernels line (plain_holds). Each phase prints
@@ -126,8 +129,8 @@ SCALE_BLOCKS = 512
 SPLIT_PASSES = 41
 # The scale phases' holds against the plain versions: a slice of this
 # many lanes holding the plan's longest lane, at the plan's cap; or, where
-# a plain run to the cap would not finish in the run (the block plan's
-# merged emit and the encode, caps past 100,000), every lane at this cap.
+# a plain run to the cap would not finish in the run (the on-demand plan's
+# merged emit and the encode, caps past 30,000), every lane at this cap.
 SCALE_PLAIN_LANES = 512
 SCALE_PLAIN_CAP = 4096
 # Those holds' plain versions run on the host CPU (the plain versions are
@@ -1643,9 +1646,10 @@ def scale_sort_path(sc: Scale, adj, gs):
 
 def scale_blocks(sc: Scale, adj, gb, res_b, tokens: int):
     """Phase 30: the 512-block artifact: the merged emit into its steady
-    state (one lane per block-delimited range, none empty; the first
-    call's kernel, on its stream-balanced lanes, timed beside the steady
-    one), the sort path, and the native sequential reader."""
+    state (lanes split inside the encode blocks, every block start a lane
+    bound, none crossed; the first call's kernel, on its stream-balanced
+    lanes, timed beside the steady one), the sort path, and the native
+    sequential reader."""
     from webgraph_ans_torch import TorchGraphDecoder
     from webgraph_ans_torch.bvgraph.sequential import ANSBvGraphSeq
 
@@ -1655,13 +1659,12 @@ def scale_blocks(sc: Scale, adj, gb, res_b, tokens: int):
     timing_hooks(dec, host)
     calls, steady, first, pl = emit_to_steady(sc, dec, adj,
                                               "scale blocks emit", host)
-    ranges = len(np.unique(np.concatenate(
-        [[0], np.asarray(gb.prelude.blocks[0], np.int64),
-         [adj.num_nodes]]))) - 1
-    one_lane_a_block = (len(pl["starts_np"]) == ranges
-                        and bool(np.all(pl["starts_np"] < pl["ends_np"])))
-    sc.kernels["decode_emit_blocks"] = emit_kernel_scale(dec, pl, tokens,
-                                                         short=True)
+    layout = block_layout(dec, pl)
+    split_inside = (layout["crossing_lanes"] == 0
+                    and layout["halos_past_block"] == 0
+                    and layout["block_starts_bound"] == SCALE_BLOCKS
+                    and layout["used_lanes"] > SCALE_BLOCKS)
+    sc.kernels["decode_emit_blocks"] = emit_kernel_scale(dec, pl, tokens)
     sc.kernels["decode_emit_blocks"]["first_call"] = first
     sdec = TorchGraphDecoder(gb)
     sort = sort_path_runs(sdec, adj, "scale blocks sort path", sc.runs,
@@ -1673,16 +1676,17 @@ def scale_blocks(sc: Scale, adj, gb, res_b, tokens: int):
     seq_exact = adjacency_equal(seq, adj)
     del seq
     sc.emit("scale_blocks", dec=dec, flat=flat, blocks=SCALE_BLOCKS,
-            block_ranges=ranges, merged_emit={
-                "calls": calls, "steady": steady,
-                "one_lane_a_block": one_lane_a_block,
+            merged_emit={
+                "calls": calls, "steady": steady, "layout": layout,
+                "split_inside_blocks": split_inside,
                 "kernel": sc.kernels["decode_emit_blocks"]},
             sort_path=sort,
             sequential={"seconds": seq_s, "exact": seq_exact})
     del dec
-    if not (one_lane_a_block and seq_exact):
-        raise SystemExit("scale blocks: the emit plan is not one lane a "
-                         "block, or the sequential reader's lists differ")
+    if not (split_inside and seq_exact):
+        raise SystemExit("scale blocks: the emit plan is not split inside "
+                         "the blocks, or the sequential reader's lists "
+                         "differ")
 
 
 def scale_random_access(sc: Scale, adj, gs, edec, tokens: int):
@@ -1743,6 +1747,100 @@ def scale_random_access(sc: Scale, adj, gs, edec, tokens: int):
     # ---- 31b. the device-resident serving contract and the serve
     # protocol at synth-4M ----
     ondemand_phase(sc, gs, adj, srv, tokens)
+
+
+def newest_split() -> dict:
+    """The attributes of the newest `emit.split` stage: the last split
+    the planner made (its rule, target, lane costs and the encode-block
+    starts it forced as bounds, `block_starts`)."""
+    from webgraph_ans_torch.utils import trace
+
+    splits = [st.attrs for st in trace.stages() if st.name == "emit.split"]
+    return dict(splits[-1]) if splits else {}
+
+
+def block_layout(dec, pl) -> dict:
+    """How a merged-emit plan sits on its artifact's encode blocks: the
+    blocks (0 on a serial artifact), the lanes that hold a node and their
+    number a block, the block starts that start a lane, the lanes that
+    cross a block start and the halos that reach back past one (both 0
+    on a sound plan)."""
+    starts, ends = pl["starts_np"], pl["ends_np"]
+    used = starts < ends
+    a, b = starts[used], ends[used]
+    bs = dec._encode_block_starts()
+    out = {"encode_blocks": 0 if bs is None else len(bs),
+           "used_lanes": int(used.sum())}
+    if bs is None:
+        return out
+    floor = dec._block_floor(a)
+    return {**out, "lanes_a_block": float(used.sum() / len(bs)),
+            "block_starts_bound": int(np.isin(bs, a).sum()),
+            "crossing_lanes": int((floor != dec._block_floor(b - 1)).sum()),
+            "halos_past_block": int((pl["hstarts_np"][used] < floor).sum()),
+            "halo_lanes": int((pl["hstarts_np"][used] < a).sum())}
+
+
+def blocks_steady_phase(edec, bdec, adj, base_b: str, tmp: str) -> dict:
+    """Phase 14b: the 512-block artifact's verified merged-emit plan at
+    EMIT_LANES (phase 14 drove it there; the benchmark's
+    cnr2000_blocks.decode): its lanes split inside the encode blocks,
+    every block start a lane bound, no lane across one and no halo past
+    one, at least 3 lanes holding a node a block; its steady decode timed
+    in turns beside phase 9's serial one (cnr2000.decode's plan), each
+    steady result list for list; and a second store of the artifact with
+    the device model search, whose .ans bytes must equal the first's.
+    Fails on any of these."""
+    from webgraph_ans_torch import store
+
+    epl = edec._plans[("emit", EMIT_LANES)]
+    bpl = bdec._plans[("emit", EMIT_LANES)]
+    layout = block_layout(bdec, bpl)
+    split = newest_split()      # phase 14's refined split
+    results = [bdec.decode_to_adjacency_device(EMIT_LANES)
+               for _ in range(3)]
+    exact = all(adjacency_exact(r, adj) for r in results)
+    del results
+    times = {"serial": [], "blocks": []}
+    for name in ("serial", "blocks", "blocks", "serial"):
+        dec = edec if name == "serial" else bdec
+        times[name].append(cuda_ms(
+            lambda: dec.decode_to_adjacency_device(EMIT_LANES), runs=10))
+    ms = {k: statistics.median(t["median"] for t in v)
+          for k, v in times.items()}
+    again = os.path.join(tmp, "cnr_b512_again")
+    store(CNR, again, encode_blocks=ENCODE_BLOCKS, use_tpu_model_search=True)
+    with open(base_b + ".ans", "rb") as f1, open(again + ".ans", "rb") as f2:
+        same_bytes = f1.read() == f2.read()
+    mc = bpl["post_meta"]
+    arcs = adj.num_arcs
+    out = {"lanes": len(bpl["starts_np"]), "cap": bpl["cap"],
+           "serial_cap": epl["cap"], "T": bpl["T"],
+           "rows_max": int(bpl["rows_np"].max()),
+           "rows_mean": float(bpl["rows_np"].mean()),
+           "dirty_nodes": len(mc["order_np"]),
+           "dirty_elements": int(mc["fx_srcs"].shape[0]),
+           "fixup_rounds": mc["rounds"], **layout, "split": split,
+           "steady_exact": exact, "steady_device_ms": times,
+           "steady_ms": ms["blocks"], "serial_steady_ms": ms["serial"],
+           "steady_ns_per_arc": ms["blocks"] * 1e6 / arcs,
+           "serial_steady_ns_per_arc": ms["serial"] * 1e6 / arcs,
+           "over_serial": ms["blocks"] / ms["serial"],
+           "bits_per_link": os.path.getsize(base_b + ".ans") * 8 / arcs,
+           "second_store_same_bytes": same_bytes,
+           "serial_layout": block_layout(edec, epl)}
+    emit("blocks_steady", graph="cnr-2000", blocks=ENCODE_BLOCKS, **out)
+    if not (exact and same_bytes and not layout["crossing_lanes"]
+            and not layout["halos_past_block"]
+            and layout["block_starts_bound"] == layout["encode_blocks"]
+            and layout["lanes_a_block"] >= 3
+            and split.get("block_starts") == layout["encode_blocks"]
+            and out["serial_layout"]["encode_blocks"] == 0):
+        raise SystemExit("block artifact's steady plan: a list differs, "
+                         "a lane or halo crosses a block start, a block "
+                         "start bounds no lane, fewer than 3 lanes a "
+                         "block, or two stores differ")
+    return out
 
 
 def fixup_hold(dec, pl, plain_on_host: bool = False) -> dict:
@@ -1820,6 +1918,7 @@ def hc_safe_break_phase(adj, runs: PathRuns, smi: str, tmp: str) -> dict:
     timing_hooks(dec, host)
     calls, steady, first, pl = emit_to_steady(
         sc, dec, adj, "hc safe-break merged emit", host, lanes=HC_LANES)
+    split = newest_split()
     parent, has_ref, counts, _ = dec._reference_parents()
     exact, deepest = converged_safe_nodes(parent, has_ref)
     used = pl["safe_np"]
@@ -1847,10 +1946,11 @@ def hc_safe_break_phase(adj, runs: PathRuns, smi: str, tmp: str) -> dict:
             empty_lanes=int(np.sum(pl["starts_np"] >= pl["ends_np"])),
             dirty_nodes=len(pl["post_meta"]["order_np"]),
             emit_broken=pl.get("emit_broken"), safe_boundaries=safe,
-            kernel=kernel)
-    if safe["wrongly_safe"]:
+            split=split, kernel=kernel)
+    if safe["wrongly_safe"] or split.get("block_starts") != 0:
         raise SystemExit("hc safe-break: the planner marked a node safe "
-                         "that a reference chain crosses")
+                         "that a reference chain crosses, or forced block "
+                         "starts on a serial artifact")
     fixup = fixup_hold(dec, pl)
     sc.emit("hc_fixup_vs_plain", dec=dec, lanes=HC_LANES, **fixup)
     if not (fixup["plain"]["bit_equal"] and fixup["hold_launches"] > 0):
@@ -1890,6 +1990,7 @@ def hc_no_breaks_phase(adj, runs: PathRuns, smi: str, tmp: str,
     timing_hooks(dec, host)
     calls, steady, first, pl = emit_to_steady(
         sc, dec, adj, "hc no-break merged emit", host, lanes=HC_LANES)
+    split = newest_split()
     counts = dec._reference_parents()[2]
     T = pl["T"]
     eargs = emit_args(dec, pl, pl["cap"])
@@ -1922,14 +2023,16 @@ def hc_no_breaks_phase(adj, runs: PathRuns, smi: str, tmp: str,
             dirty_nodes=len(mc["order_np"]),
             dirty_elements=int(mc["fx_srcs"].shape[0]),
             fixup_rounds=mc["rounds"], emit_broken=pl.get("emit_broken"),
-            kernel=kernel, first_call=first)
+            split=split, kernel=kernel, first_call=first)
     fixup = fixup_hold(dec, pl, plain_on_host=True)
     sc.emit("hc_no_breaks_fixup_vs_plain", dec=dec, lanes=HC_LANES,
             **fixup)
-    if pl.get("emit_broken") or not (fixup["plain"]["bit_equal"]
-                                     and fixup["hold_launches"] > 0):
-        raise SystemExit("hc without safe breaks: the sort path served, or "
-                         "the fixup kernel differs from its plain version")
+    if (pl.get("emit_broken") or split.get("block_starts") != 0
+            or not (fixup["plain"]["bit_equal"]
+                    and fixup["hold_launches"] > 0)):
+        raise SystemExit("hc without safe breaks: the sort path served, its "
+                         "split forced block starts, or the fixup kernel "
+                         "differs from its plain version")
     kernel["fixup"] = fixup
     return kernel
 
@@ -2402,6 +2505,7 @@ def main() -> int:
             "decode_blocks": decode_cuda.decode_blocks.launches,
             "emit_fixup": fixup_cuda.emit_fixup.launches}
         mc = epl["post_meta"]
+        split_w7 = newest_split()
         path_launches = {k: cold_launches[k] + steady_launches[k]
                          for k in cold_launches}
         # the steady call on the device (the graph's replay and copies),
@@ -2430,12 +2534,14 @@ def main() -> int:
              steady_device_ms=t_steady, steady_eager_seconds=eager_s,
              steady_eager_device_ms=t_eager, post_steady_ms=t_post,
              host_planner_seconds=host_s, launches=cold_launches,
-             steady_launches=steady_launches,
+             steady_launches=steady_launches, split=split_w7,
              emit_broken=epl.get("emit_broken"))
         if not (all(c["exact"] for c in cold) and steady_exact
-                and edec.emit_steady(EMIT_LANES)):
+                and edec.emit_steady(EMIT_LANES)
+                and split_w7.get("block_starts") == 0):
             raise SystemExit("merged emit: end-to-end adjacency is not "
-                             "exact, or the plan never verified")
+                             "exact, the plan never verified, or its split "
+                             "forced block starts on a serial artifact")
         if (path_launches["decode_emit"] < 1
                 or path_launches["decode_blocks_aux"] < 1
                 or steady_launches["decode_emit"] != len(steady)
@@ -2639,6 +2745,9 @@ def main() -> int:
                 and emit_calls[-2]["verified"]):
             raise SystemExit("block artifact: a decode path is not exact, "
                              "or the merged-emit plan never verified")
+        # ---- 14b. its steady plan, split inside the encode blocks, beside
+        # the serial one's ----
+        blocks_steady_phase(edec, bdec, adj, base_b, tmp)
 
         # ---- 15-19. the sort path, its fallbacks and random access ----
         runs = PathRuns()

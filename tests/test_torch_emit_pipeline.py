@@ -142,11 +142,11 @@ def test_emit_planner_matches_jax(artifacts, name, xla_decoder):
 
     On the block-encoded artifact the rebalanced and refined plans are
     compared through the lists: there every encode-block start bounds a
-    lane and no lane crosses one, so the port plans one lane per
-    block-delimited range with no bisection, while the JAX planner
-    bisects and snaps its bounds to the block starts, padding the same
-    lanes with empty ones. So the port's plan is the JAX plan without its
-    empty lanes, and its lists are the input graph's.
+    lane and no lane crosses one; the port splits inside the blocks (one
+    bisected target over all of them, each start a forced bound), while
+    the JAX planner bisects and snaps its bounds to the block starts, one
+    lane a block. So the port's plan is checked for those properties
+    (_check_block_plan), and its lists are the input graph's.
 
     On the window-16 artifact too: past window 12 every cut is at a safe
     node, and the port closes each lane at the last safe node that keeps
@@ -181,14 +181,17 @@ def test_emit_planner_matches_jax(artifacts, name, xla_decoder):
 
 
 def _compare_rebalanced(jdec, tdec, adj, blocks, safe, cost):
-    """A rebalanced plan of both packages: equal, the port's without the
-    JAX plan's empty lanes on block artifacts, or past window 12 through
-    the lists, with the port's longest lane (in the split's cost) no
-    longer than the JAX plan's, no empty lane and every bound safe."""
+    """A rebalanced plan of both packages: equal; on block artifacts
+    through the lists, with the port's plan split inside the blocks
+    (_check_block_plan); or past window 12 through the lists, with the
+    port's longest lane (in the split's cost) no longer than the JAX
+    plan's, no empty lane and every bound safe."""
+    if blocks:
+        _check_block_plan(tdec, tdec._emit_plan(LANES), LANES)
+        _plan_lists(adj, tdec)
+        return
     if tdec.window <= 12:
-        _check_plans(jdec, tdec, drop_empty=blocks)
-        if blocks:
-            _plan_lists(adj, tdec)
+        _check_plans(jdec, tdec)
         return
     jpl, _ = _summary_jax(jdec)
     tpl = tdec._emit_plan(LANES)
@@ -461,15 +464,108 @@ def test_min_max_split_doubles_past_a_long_safe_gap():
     assert target == pytest.approx(float(work[-1]), rel=1e-9)
 
 
+@pytest.mark.parametrize("rule", ["greedy", "last_safe"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_forced_split_is_each_block_split_alone(rule, masked):
+    """With forced nodes (encode-block starts) the native split's bounds
+    are, at every target the bisection tries, those of each block split
+    alone at that target, with every forced node a bound; it refuses
+    where the blocks' lanes together pass the lane count; and with no
+    node forced it gives the bounds of the split without the argument,
+    bound for bound."""
+    cost, halo, safe, work, degs = _split_case(17 + masked, False, masked,
+                                               True)
+    n = len(cost)
+    starts = np.array([0, 90, 91, 240, 420, 599])
+    forced = np.zeros(n, bool)
+    forced[starts] = True
+    edges = np.append(starts, n)
+
+    def split(t, lanes, forced=None, lo=0, hi=n):
+        args = (cost[lo:hi], halo[lo:hi + 1],
+                None if safe is None else safe[lo:hi], lanes)
+        kw = {} if forced is None else dict(forced=forced)
+        if rule == "greedy":
+            return graph_decode.emit_split(*args, True, t, **kw)
+        return graph_decode.emit_split_last(*args, t, **kw)
+
+    for lanes in (len(starts), 12, 40):
+        lo = float(work[-1]) / lanes
+        hi = lo * 8 + float(np.max(degs) + halo.max()) + 4096
+        targets = [lo * (1 + k / 8) for k in range(40)] + [hi, 1e300]
+        for t in targets:
+            got = split(t, lanes, forced)
+            alone = [split(t, b - a, None, a, b) for a, b in
+                     zip(edges[:-1], edges[1:])]
+            if any(x is None for x in alone):
+                assert got is None, (lanes, t)
+                continue
+            want = np.unique(np.concatenate(
+                [a + x for a, x in zip(edges[:-1], alone)]))
+            if len(want) - 1 > lanes:
+                assert got is None, (lanes, t)
+                continue
+            assert got is not None, (lanes, t)
+            np.testing.assert_array_equal(np.unique(got), want)
+            np.testing.assert_array_equal(
+                split(t, lanes, np.zeros(n, bool)), split(t, lanes))
+
+
+def _check_block_plan(dec, pl, num_lanes):
+    """A plan of a block-parallel artifact: contiguous lanes over every
+    node, every encode-block start a lane's start, no lane across one,
+    every lane's start an entry point (a sampled node or a block start),
+    its halo start no further back than its block's start, and the lanes
+    that hold a node within num_lanes (or one a block, where the blocks
+    are more). Returns (block starts, used starts, used ends)."""
+    bs = dec._encode_block_starts()
+    starts, ends = pl["starts_np"], pl["ends_np"]
+    np.testing.assert_array_equal(starts[1:], ends[:-1])
+    assert starts[0] == 0 and ends[-1] == dec.num_nodes
+    used = starts < ends
+    a, b = starts[used], ends[used]
+    assert np.isin(bs, a).all()
+    np.testing.assert_array_equal(dec._block_floor(a), dec._block_floor(b - 1))
+    assert np.isin(a, dec._entries()[0]).all()
+    assert used.sum() <= max(num_lanes, len(bs))
+    if "hstarts_np" in pl:
+        h = pl["hstarts_np"][used]
+        np.testing.assert_array_equal(
+            h, np.maximum(a - dec._halo(pl), dec._block_floor(a)))
+    return bs, a, b
+
+
+def _lanes_a_block(bs, a, n):
+    """The lanes that start in each encode block."""
+    return np.diff(np.searchsorted(a, np.append(bs, n)))
+
+
+def _block_costs(dec, pl, bs):
+    """Each encode block's cost in the last split's model: its observed
+    node work (the refinement's), or elements + 2 a node."""
+    nw = pl.get("node_work")
+    if nw is None:
+        nw = pl["degs_np"] + 2.0
+    P = np.concatenate([[0.0], np.cumsum(nw)])
+    edges = np.append(bs, dec.num_nodes)
+    return P[edges[1:]] - P[edges[:-1]]
+
+
+def _split_stages(mark):
+    return [s for s in trace.stages()
+            if s.id > mark and s.name == "emit.split"]
+
+
 def test_block_plan_one_lane_per_block(artifacts, xla_decoder):
-    """On the block-encoded artifact the rebalanced and refined plans have
-    one lane per block-delimited range and no empty lane, at LANES and at
-    4 * LANES, and every call's lists equal the JAX package's
-    decode_to_adjacency_device."""
+    """On the block-encoded, phase-sampled artifact the rebalanced and
+    refined plans split inside the encode blocks, at LANES and at
+    4 * LANES: every block start bounds a lane, no lane crosses one, every
+    lane starts at an entry point, a block longer than 1.5 x the split's
+    target holds more than one lane (some block does at both lane
+    counts), and every call's lists equal the JAX package's
+    decode_to_adjacency_device (one lane a block)."""
     adj, base = artifacts["blocks4_sampled3"]
     g = TorchGraph.load(base)
-    bounds = np.unique(np.concatenate(
-        [[0], np.asarray(g.prelude.blocks[0], np.int64), [adj.num_nodes]]))
     want = adj.to_lists()
     for lanes in (LANES, 4 * LANES):
         jax_lists = emit_post.to_host_lists(*(
@@ -478,19 +574,145 @@ def test_block_plan_one_lane_per_block(artifacts, xla_decoder):
             adj.num_nodes)
         assert [x.tolist() for x in jax_lists] == want
         dec = TorchGraphDecoder(g, device="cpu")
-        plans = []
-        for _ in range(4):
+        mark = max((s.id for s in trace.stages()), default=0)
+        for i in range(4):
             got = emit_post.to_host_lists(
                 *dec.decode_to_adjacency_device(lanes), adj.num_nodes)
             assert [x.tolist() for x in got] == want
             pl = dec._plans[("emit", lanes)]
-            plans.append((pl["starts_np"].copy(), pl["ends_np"].copy()))
+            if i:       # rebalanced, refined, steady
+                bs, a, _ = _check_block_plan(dec, pl, lanes)
         assert dec.emit_steady(lanes) and "node_work" in pl
-        for starts, ends in plans[1:]:     # rebalanced, refined, steady
-            np.testing.assert_array_equal(starts, bounds[:-1])
-            np.testing.assert_array_equal(ends, bounds[1:])
-        assert pl["ptrs"].shape[0] == len(bounds) - 1
-        assert pl["regs"].shape[1] == len(bounds) - 1
+        split = _split_stages(mark)[-1]
+        assert split.attrs["block_starts"] == len(bs) == 4
+        many = _block_costs(dec, pl, bs) > 1.5 * split.attrs["target"]
+        per_block = _lanes_a_block(bs, a, adj.num_nodes)
+        assert many.any() and (per_block[many] > 1).all()
+        assert pl["ptrs"].shape[0] == pl["regs"].shape[1] == len(
+            pl["starts_np"])
+
+
+# block-parallel artifacts with per-node phases, every node an entry:
+# name -> (nodes, seed, encode blocks, compress args, compress kwargs)
+BLOCK_ARTIFACTS = {
+    "blocks4": (400, 29, 4, (7, 3, 2), {}),
+    "blocks8": (400, 31, 8, (7, 3, 2), {}),
+    # past window 12: the last-safe split, each block start forced
+    "w16_blocks4": (400, 37, 4, (16, 2_000_000_000, 4),
+                    dict(safe_break_interval=32)),
+}
+BLOCK_LANES = 16
+
+
+@pytest.fixture(scope="module")
+def block_artifacts(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_emit_blocks")
+    made = {}
+    for name, (n, seed, blocks, args, kw) in BLOCK_ARTIFACTS.items():
+        adj = synth_web_graph(n, seed=seed)
+        base = str(root / name)
+        _save(base, compress_adjacency(adj, *args, encode_blocks=blocks,
+                                       **kw), 1)
+        made[name] = (adj, base)
+    return made
+
+
+def _to_steady(adj, dec, lanes):
+    """Drives the merged emit into its verified steady state, each call's
+    lists checked against the input graph; returns the plan."""
+    for _ in range(4):
+        _assert_lists(adj, *dec.decode_to_adjacency_device(lanes))
+        if dec.emit_steady(lanes):
+            break
+    assert dec.emit_steady(lanes)
+    _assert_lists(adj, *dec.decode_to_adjacency_device(lanes))
+    return dec._plans[("emit", lanes)]
+
+
+@pytest.mark.parametrize("name", list(BLOCK_ARTIFACTS))
+def test_block_plan_splits_inside_blocks(block_artifacts, name,
+                                         xla_decoder):
+    """A block-parallel artifact with per-node phases, driven into the
+    steady state: every call's lists are the input graph's and the JAX
+    package's; the steady plan uses every lane, starts one at each block
+    start and crosses none, gives each block lanes by its steps (a block
+    longer than 1.5 x the target holds more than one), and records the
+    forced starts on its splits and the blocks on plan.verify."""
+    adj, base = block_artifacts[name]
+    blocks = BLOCK_ARTIFACTS[name][2]
+    rule = "last_safe" if BLOCK_ARTIFACTS[name][3][0] > 12 else "greedy"
+    jax_lists = emit_post.to_host_lists(*(
+        torch.from_numpy(np.array(a)) for a in TpuGraphDecoder(
+            JaxGraph.load(base)).decode_to_adjacency_device(BLOCK_LANES)),
+        adj.num_nodes)
+    assert [x.tolist() for x in jax_lists] == adj.to_lists()
+    dec = TorchGraphDecoder(TorchGraph.load(base), device="cpu")
+    mark = max((s.id for s in trace.stages()), default=0)
+    pl = _to_steady(adj, dec, BLOCK_LANES)
+    bs, a, _ = _check_block_plan(dec, pl, BLOCK_LANES)
+    assert len(bs) == blocks and len(pl["starts_np"]) == BLOCK_LANES
+    splits = _split_stages(mark)
+    assert [s.attrs["block_starts"] for s in splits] == [blocks, blocks]
+    assert [s.attrs["rule"] for s in splits] == [rule, rule]
+    many = _block_costs(dec, pl, bs) > 1.5 * splits[-1].attrs["target"]
+    per_block = _lanes_a_block(bs, a, adj.num_nodes)
+    assert many.any() and (per_block[many] > 1).all()
+    assert per_block.sum() > blocks
+    (verify,) = [s for s in trace.stages()
+                 if s.id > mark and s.name == "plan.verify"]
+    assert verify.attrs["encode_blocks"] == blocks
+    assert verify.attrs["lanes"] == BLOCK_LANES
+
+
+@pytest.mark.parametrize("name", ["blocks4", "blocks8"])
+def test_block_halo_stops_at_the_block_start(block_artifacts, name,
+                                             monkeypatch):
+    """Where the safe boundaries are unknown every lane re-decodes a
+    4 * window halo, on a block-parallel artifact each clipped at its
+    block's start (the rANS state resets there): the steady plan's lanes
+    that start inside a block reach back 4 * window nodes or to the
+    block's start, those at a block start not at all; the first call's
+    stream-balanced lanes have none. Lanes planted 3 nodes past each block
+    start reach back to it alone. Every call's lists are the input
+    graph's."""
+    adj, base = block_artifacts[name]
+    n, lanes = adj.num_nodes, 2 * BLOCK_LANES
+
+    def unknown():
+        raise RuntimeError("no safe boundaries")
+
+    dec = TorchGraphDecoder(TorchGraph.load(base), device="cpu")
+    monkeypatch.setattr(dec, "_safe_boundaries", unknown)
+    _assert_lists(adj, *dec.decode_to_adjacency_device(lanes))
+    first = dict(dec._plans[("emit", lanes)])
+    np.testing.assert_array_equal(first["hstarts_np"], first["starts_np"])
+    pl = _to_steady(adj, dec, lanes)
+    assert pl["safe_np"] is None and dec._halo(pl) == 4 * dec.window
+    bs, a, _ = _check_block_plan(dec, pl, lanes)
+    h = pl["hstarts_np"][pl["starts_np"] < pl["ends_np"]]
+    inside = ~np.isin(a, bs)
+    assert inside.any() and (h[inside] < a[inside]).all()
+
+    # lanes 3 and 40 nodes past each block start: the first clipped to it
+    dec = TorchGraphDecoder(TorchGraph.load(base), device="cpu")
+    bs = dec._encode_block_starts()
+    starts = np.unique(np.concatenate([bs, bs + 3, bs + 40]))
+    starts = starts[starts < n]
+    pl = dec._plans.setdefault(("emit", len(starts)), {})
+    pl.update(degs_np=np.diff(adj.offsets.astype(np.int64)), safe_np=None,
+              bounds=(starts, np.append(starts[1:], n)))
+    val, xch, nib, _ = dec.decode_emit_raw(len(starts))
+    pl = dec._emit_plan(len(starts))
+    _check_block_plan(dec, pl, len(starts))
+    hs = pl["hstarts_np"]
+    np.testing.assert_array_equal(hs[np.isin(starts, bs + 3)],
+                                  bs[bs + 3 < n])
+    far = np.isin(starts, bs + 40)
+    np.testing.assert_array_equal(hs[far], starts[far] - 4 * dec.window)
+    lens = pl["ends_np"] - pl["starts_np"]
+    lane_of = np.repeat(np.arange(len(lens), dtype=np.int32), lens)
+    _assert_lists(adj, *emit_post.postprocess(val, xch, nib, lane_of,
+                                              pl["starts_np"], n)[:3])
 
 
 def _guarded_call(dec, layout):
@@ -669,11 +891,13 @@ def test_split_rule_follows_the_window(artifacts, name, rule):
     assert [s.attrs["model"] for s in splits] == ["elements", "rows"]
     for s in splits:
         assert s.attrs["rule"] == rule
+        assert s.attrs["block_starts"] == 0
         assert 0 < s.attrs["mean_cost"] <= s.attrs["max_cost"]
         if rule == "last_safe":
             assert s.attrs["max_cost"] <= s.attrs["target"]
     pl = dec._plans[("emit", LANES)]
     (verify,) = [s for s in stages if s.name == "plan.verify"]
+    assert verify.attrs["encode_blocks"] == 0
     assert verify.attrs["rows_max"] == int(pl["rows_np"].max())
     assert verify.attrs["rows_mean"] == float(pl["rows_np"].mean())
     assert verify.attrs["rows_max"] >= verify.attrs["rows_mean"] > 0

@@ -201,9 +201,10 @@ def test_hc_store_decodes_to_the_plain_lists(hc_decoder):
 def test_verify_stage_records_the_steady_layout(case, request):
     """plan.verify keeps the layout it verified: the fixup's rounds,
     dirty nodes, their elements and the rows that take the fixup kernel's
-    two-run step from the post-pass's cache, the empty lanes, all lanes
-    and the bounds not at a safe node from the plan, the longest and the
-    mean lane's rows from its decode; plan.safe keeps its safe nodes. The
+    two-run step from the post-pass's cache, the empty lanes, all lanes,
+    the bounds not at a safe node and the encode blocks (none: a serial
+    artifact) from the plan, the longest and the mean lane's rows from its
+    decode; plan.safe keeps its safe nodes. The
     high-compression graph's steady state has dirty chains to fix up."""
     if case == "hc":
         dec, _, stages = request.getfixturevalue("hc_decoder")
@@ -222,7 +223,7 @@ def test_verify_stage_records_the_steady_layout(case, request):
         "two_run_rows": mc["two_run_rows"],
         "empty_lanes": int((pl["starts_np"] >= pl["ends_np"]).sum()),
         "rows_max": int(pl["rows_np"].max()),
-        "rows_mean": float(pl["rows_np"].mean()),
+        "rows_mean": float(pl["rows_np"].mean()), "encode_blocks": 0,
         "unsafe_cuts": graph_decode.unsafe_cuts(pl["starts_np"],
                                                 pl["safe_np"])}
     assert verify.attrs["lanes"] == pl["regs"].shape[1] == lanes

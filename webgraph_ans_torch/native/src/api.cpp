@@ -897,17 +897,20 @@ int32_t wgt_scale_freqs(const uint64_t* freqs, const uint64_t* sorted_idx,
 //
 // Walks the nodes once, summing cost[x] into the open lane; a lane closes
 // before node x when adding it passes `target` at a safe node (safe NULL:
-// every node), or passes 1.5 * target anywhere when force_unsafe; a new
-// lane starts its sum at halo[x]. Writes num_lanes + 1 bounds (the unused
-// lanes empty at n) and returns 1, or returns 0 when the nodes need more
-// than num_lanes lanes at this target.
+// every node), or passes 1.5 * target anywhere when force_unsafe, and
+// always before a node x > 0 with forced[x] (forced NULL: none; the
+// encode-block starts of a block-parallel artifact); a new lane starts
+// its sum at halo[x]. Writes num_lanes + 1 bounds (the unused lanes empty
+// at n) and returns 1, or returns 0 when the nodes need more than
+// num_lanes lanes at this target.
 // ---------------------------------------------------------------------------
 #pragma GCC push_options
 #pragma GCC optimize("fp-contract=off")
 int32_t wgt_emit_split(const double* cost, const double* halo,
-                       const uint8_t* safe, uint64_t n, uint64_t num_lanes,
-                       int32_t force_unsafe, double target, int64_t* bounds) {
-  const double forced = 1.5 * target;
+                       const uint8_t* safe, const uint8_t* forced, uint64_t n,
+                       uint64_t num_lanes, int32_t force_unsafe,
+                       double target, int64_t* bounds) {
+  const double limit = 1.5 * target;
   uint64_t nb = 1;
   uint64_t last = 0;
   bounds[0] = 0;
@@ -915,8 +918,9 @@ int32_t wgt_emit_split(const double* cost, const double* halo,
   for (uint64_t x = 0; x < n; ++x) {
     const double w = cost[x];
     const double next = acc + w;
-    const bool close = (next > target && (safe == nullptr || safe[x])) ||
-                       (force_unsafe && next > forced);
+    const bool close = (forced != nullptr && forced[x]) ||
+                       (next > target && (safe == nullptr || safe[x])) ||
+                       (force_unsafe && next > limit);
     if (close && x > last) {
       if (nb == num_lanes) return 0;
       bounds[nb++] = static_cast<int64_t>(x);
@@ -947,14 +951,17 @@ int32_t wgt_emit_split(const double* cost, const double* halo,
 // none fills it so far). A split whose gaps all fit the target is the
 // same with or without them.
 //
+// With forced (NULL: none), a lane also closes at the first node b > a
+// with forced[b] that it reaches within the target: no lane crosses one.
+//
 // Writes num_lanes + 1 bounds (the unused lanes empty at n) and returns
 // 1; returns 0 when a lane has no such b or the nodes need more than
 // num_lanes lanes at this target.
 int32_t wgt_emit_split_last(const double* cost, const double* halo,
-                            const uint8_t* safe, const int32_t* cross,
-                            const double* gap, uint64_t n,
-                            uint64_t num_lanes, double target, double fill,
-                            int64_t* bounds) {
+                            const uint8_t* safe, const uint8_t* forced,
+                            const int32_t* cross, const double* gap,
+                            uint64_t n, uint64_t num_lanes, double target,
+                            double fill, int64_t* bounds) {
   uint64_t nb = 1, a = 0;
   double pa = 0.0;
   bounds[0] = 0;
@@ -970,10 +977,12 @@ int32_t wgt_emit_split_last(const double* cost, const double* halo,
         xb = x;
         break;
       }
-      if (x + 1 == n || safe == nullptr || safe[x + 1]) {
+      const bool bound = x + 1 == n || (forced != nullptr && forced[x + 1]);
+      if (bound || safe == nullptr || safe[x + 1]) {
         last = x + 1;
         plast = p;
       }
+      if (bound) break;
     }
     if (cross != nullptr && xb < n && gap[xb] > target &&
         !(last > a && base + (plast - pa) >= least)) {

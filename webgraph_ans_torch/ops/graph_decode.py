@@ -89,9 +89,9 @@ def _native_split(fn: str, cost, halo, safe, num_lanes: int, *args,
                   cuts=()):
     """Runs the native split fn over cost [n] and halo [n + 1] (float64)
     and safe [n] (bool, or None: every node safe), then the pointers of
-    `cuts` (arrays of the dtypes fn takes, or None), with its own args
-    after the lane count: the num_lanes + 1 lane bounds (int64), or None
-    where it refuses."""
+    `cuts` ((array [n] or None, the numpy dtype and the ctypes type fn
+    takes) each), with its own args after the lane count: the
+    num_lanes + 1 lane bounds (int64), or None where it refuses."""
     cost = np.ascontiguousarray(cost, np.float64)
     halo = np.ascontiguousarray(halo, np.float64)
     n = len(cost)
@@ -106,6 +106,8 @@ def _native_split(fn: str, cost, halo, safe, num_lanes: int, *args,
                              f"(got {len(safe)})")
         safe_p = native.as_ptr(safe, ctypes.c_uint8)
     cut_p = []
+    cuts = [(None if arr is None else np.ascontiguousarray(arr, dtype), ctype)
+            for arr, dtype, ctype in cuts]
     for arr, ctype in cuts:
         if arr is not None and len(arr) != n:
             raise ValueError(f"{fn}: {n} costs need {n} entries a node "
@@ -120,17 +122,20 @@ def _native_split(fn: str, cost, halo, safe, num_lanes: int, *args,
 
 
 def emit_split(cost: np.ndarray, halo: np.ndarray, safe, num_lanes: int,
-               force_unsafe: bool, target: float):
+               force_unsafe: bool, target: float, forced=None):
     """The merged-emit planner's greedy split of n nodes into at most
     num_lanes lanes at `target`, in the native runtime (wgt_emit_split):
     walking the nodes in order, a lane closes before node x when its cost
     sum would pass target at a safe node, or 1.5 * target anywhere when
-    force_unsafe, and the next lane's sum starts at halo[x]. cost [n] and
-    halo [n + 1] are float64, safe [n] bool or None (every node safe).
-    Returns the num_lanes + 1 lane bounds (int64, the unused lanes empty
-    at n), or None when the nodes need more lanes at this target."""
+    force_unsafe, or when forced[x] (x > 0), and the next lane's sum
+    starts at halo[x]. cost [n] and halo [n + 1] are float64, safe [n]
+    bool or None (every node safe), forced [n] bool or None (none: the
+    encode-block starts of a block-parallel artifact). Returns the
+    num_lanes + 1 lane bounds (int64, the unused lanes empty at n), or
+    None when the nodes need more lanes at this target."""
     return _native_split("wgt_emit_split", cost, halo, safe, num_lanes,
-                         int(bool(force_unsafe)), float(target))
+                         int(bool(force_unsafe)), float(target),
+                         cuts=((forced, np.uint8, ctypes.c_uint8),))
 
 
 # a lane cut inside a safe gap closes at the fewest crossings among the
@@ -139,7 +144,8 @@ CUT_FILL = 0.85
 
 
 def emit_split_last(cost: np.ndarray, halo: np.ndarray, safe,
-                    num_lanes: int, target: float, cross=None, gap=None):
+                    num_lanes: int, target: float, cross=None, gap=None,
+                    forced=None):
     """The split of plans that cut at safe nodes, in the native runtime
     (wgt_emit_split_last): a lane that starts at a has sum halo[a] +
     (P[b] - P[a]), P = [0, cumsum(cost)] in float64, and ends at the
@@ -159,6 +165,9 @@ def emit_split_last(cost: np.ndarray, halo: np.ndarray, safe,
     those without them, so a plan whose gaps all fit a mean lane (the
     bisection's least target) keeps them at every target it tries.
 
+    With forced (bool [n], as emit_split's), a lane also closes at the
+    first forced node it reaches within the target.
+
     Returns the num_lanes + 1 lane bounds (int64, the unused lanes empty
     at n), or None when a lane has no such b or the nodes need more lanes
     at this target."""
@@ -166,13 +175,11 @@ def emit_split_last(cost: np.ndarray, halo: np.ndarray, safe,
                                             and safe is None):
         raise ValueError("emit_split_last: cross and gap go together, "
                          "with a safe mask")
-    if cross is not None:
-        cross = np.ascontiguousarray(cross, np.int32)
-        gap = np.ascontiguousarray(gap, np.float64)
     return _native_split("wgt_emit_split_last", cost, halo, safe,
                          num_lanes, float(target), float(CUT_FILL),
-                         cuts=((cross, ctypes.c_int32),
-                               (gap, ctypes.c_double)))
+                         cuts=((forced, np.uint8, ctypes.c_uint8),
+                               (cross, np.int32, ctypes.c_int32),
+                               (gap, np.float64, ctypes.c_double)))
 
 
 def safe_gaps(cost: np.ndarray, safe: np.ndarray) -> np.ndarray:
@@ -701,13 +708,37 @@ class TorchGraphDecoder:
         return "last_safe" if self.window > self.FORCED_CUT_WINDOW \
             else "greedy"
 
+    def _encode_block_starts(self):
+        """The encode-block starts of a block-parallel artifact (int64,
+        ascending, node 0 first), where the rANS state resets and a lane
+        must start; None on a serial artifact."""
+        blocks = self.graph.prelude.blocks
+        if blocks is None:
+            return None
+        bs = np.asarray(blocks[0], np.int64)
+        return np.unique(np.concatenate([[0], bs[bs < self.num_nodes]]))
+
+    def _block_floor(self, nodes) -> np.ndarray:
+        """The encode-block start at or before each node (int64; 0 on a
+        serial artifact): a lane's halo reaches no further back."""
+        nodes = np.asarray(nodes, np.int64)
+        bs = self._encode_block_starts()
+        if bs is None:
+            return np.zeros_like(nodes)
+        return bs[np.searchsorted(bs, nodes, side="right") - 1]
+
     def _emit_bounds(self, num_lanes: int, key=None):
         """Lane bounds for the merged-emit kernel. First call: the
         stream-balanced block bounds. Once per-node degrees are known
-        (cached from a decode): on block-encoded artifacts one lane per
-        block-delimited range; otherwise a minmax split, the bisection of
-        the split's target over the kernel's step estimate (elements +
-        2*nodes, or the observed node_work) under `_split_rule`."""
+        (cached from a decode): a minmax split, the bisection of the
+        split's target over the kernel's step estimate (elements +
+        2*nodes, or the observed node_work) under `_split_rule`. On a
+        block-parallel artifact every encode-block start is a forced bound
+        (no lane crosses one: the rANS state resets there), so the one
+        bisected target gives each block lanes by its steps, at least one;
+        the lanes stay within num_lanes where the blocks are fewer. On a
+        phase-sampled artifact each bound then moves up to the next entry
+        point (a sampled node or a block start)."""
         pl = self._plans.setdefault(key or ("emit", num_lanes), {})
         if "bounds" in pl:
             return pl["bounds"]
@@ -742,44 +773,40 @@ class TorchGraphDecoder:
                 ends[:-1] = starts[1:]
                 ends[-1] = n
             return starts, ends
-        blocks = self.graph.prelude.blocks
-        if blocks is not None:
-            # no lane may cross an encode-block start (the rANS state
-            # resets there). The JAX planner bisects and then snaps every
-            # bound to a block start, so its lanes are the block-delimited
-            # ranges padded with empty ones: plan those ranges, one lane
-            # each, with no bisection. (Every node is an entry point when
-            # phase_step is 1, as the first call's _block_bounds uses; a
-            # split inside the blocks is not planned here.)
-            bounds = np.unique(np.concatenate(
-                [[0], np.asarray(blocks[0], np.int64), [n]]))
-            pl["bounds"] = (bounds[:-1].copy(), bounds[1:].copy())
-            return pl["bounds"]
         offs = np.concatenate([[0], np.cumsum(degs, dtype=np.int64)])
         nw = pl.get("node_work")
         if nw is not None:
             work = np.concatenate([[0.0], np.cumsum(nw)])
         else:
             work = offs + 2.0 * np.arange(n + 1)
-        # halo re-decode cost per boundary
+        # halo re-decode cost per boundary, clipped at its encode block
         H = self._halo(pl)
-        halo_el = offs - offs[np.maximum(np.arange(n + 1) - H, 0)]
+        x = np.arange(n + 1)
+        halo_el = offs - offs[np.maximum(x - H, self._block_floor(x))]
         cost = np.diff(work)
         halo = halo_el.astype(np.float64)
         safe = pl.get("safe_np")
+        bstarts = self._encode_block_starts()
+        lanes, forced, gap_safe = num_lanes, {}, safe
+        if bstarts is not None:
+            at = np.zeros(n, bool)
+            at[bstarts] = True
+            lanes, forced = max(num_lanes, len(bstarts)), dict(forced=at)
+            if safe is not None:
+                gap_safe = safe | at
         rule = self._split_rule()
         if rule == "last_safe":
             cross = pl.get("cross_np") if safe is not None else None
             # a safe gap longer than the target is cut inside where the
             # reference chains are known
             cuts = ({} if cross is None else
-                    dict(cross=cross, gap=safe_gaps(cost, safe)))
+                    dict(cross=cross, gap=safe_gaps(cost, gap_safe)))
             split = functools.partial(emit_split_last, cost, halo, safe,
-                                      num_lanes, **cuts)
+                                      lanes, **cuts, **forced)
         else:
             split = functools.partial(emit_split, cost, halo, safe,
-                                      num_lanes, True)
-        lo = float(work[-1]) / num_lanes
+                                      lanes, True, **forced)
+        lo = float(work[-1]) / lanes
         hi = lo * 8 + float(np.max(degs, initial=0) + halo_el.max()) + 4096
         with trace.stage("emit.split", lanes=num_lanes,
                          model="rows" if nw is not None else "elements",
@@ -795,7 +822,9 @@ class TorchGraphDecoder:
                 bounds = np.maximum.accumulate(bounds)
             st.set(target=target, max_cost=float(lc.max()),
                    mean_cost=float(lc.mean()),
-                   unsafe_cuts=unsafe_cuts(bounds, safe))
+                   unsafe_cuts=unsafe_cuts(bounds, safe),
+                   block_starts=(0 if bstarts is None else
+                                 int(np.isin(bstarts, bounds).sum())))
         starts = bounds[:-1].copy()
         ends = bounds[1:].copy()
         pl["bounds"] = (starts, ends)
@@ -823,12 +852,20 @@ class TorchGraphDecoder:
         """The nodes a lane of plan pl decodes ahead of its start, so that
         the reference chains of its first real nodes resolve in the lane
         (halo rows feed the ring but are never marked): 4*window; none on
-        lanes split at reference-safe nodes, across encode blocks and on
-        sampled artifacts (a lane starts at an entry)."""
-        if (self.phase_step == 1 and self.graph.prelude.blocks is None
-                and self.window > 0 and pl.get("safe_np") is None):
-            return 4 * self.window
-        return 0
+        lanes split at reference-safe nodes and on sampled artifacts (a
+        lane starts at an entry). On a block-parallel artifact each lane's
+        halo stops at its encode block's start (_block_floor), where the
+        rANS state resets: a lane that starts there has none; and its
+        first call has none (its lanes, the stream-balanced bounds with
+        the block starts added, outgrow their estimated cap even without
+        one: cnr-2000's longest at 512 blocks takes 1.9x, a halo makes it
+        2.1x and doubles the cap loop's memory)."""
+        if (self.phase_step > 1 or self.window == 0
+                or pl.get("safe_np") is not None
+                or (self.graph.prelude.blocks is not None
+                    and "degs_np" not in pl)):
+            return 0
+        return 4 * self.window
 
     def _emit_plan(self, num_lanes: int) -> dict:
         """Plan for decode_emit: lane bounds, halo starts, the register
@@ -843,7 +880,8 @@ class TorchGraphDecoder:
         ends = np.asarray(ends, np.int64)
         W, n, dev = self.window, self.num_nodes, self.device
         starts = np.where(rstarts >= ends, rstarts,
-                          np.maximum(rstarts - self._halo(pl), 0))
+                          np.maximum(rstarts - self._halo(pl),
+                                     self._block_floor(rstarts)))
         if W > 0 and self.phase_step > 1:
             ring = trace.upload(self._rings_via_native(starts, W), dev)
         elif W > 0:
@@ -1034,10 +1072,11 @@ class TorchGraphDecoder:
 
         The first call decodes on stream-balanced bounds and caches the
         degrees; the next rebalances onto reference-safe, element-balanced
-        bounds and refines them once on the observed rows; the plan is
-        then verified, and later calls run the kernel (mark_deg mode) and
-        the cached-layout post-pass with no host synchronisation; on CUDA
-        as one CUDA graph (_steady_graph).
+        bounds (on a block-parallel artifact split inside the encode
+        blocks, each block start a bound) and refines them once on the
+        observed rows; the plan is then verified, and later calls run the
+        kernel (mark_deg mode) and the cached-layout post-pass with no
+        host synchronisation; on CUDA as one CUDA graph (_steady_graph).
 
         Past window 12 lanes are cut at reference-safe nodes, and inside
         a safe gap only where it is longer than a lane's target (a
@@ -1082,14 +1121,16 @@ class TorchGraphDecoder:
         (`dirty_nodes`) and their elements (`dirty_elements`, the node
         layout's sources), the layout's rows that take the fixup kernel's
         two-run step (`two_run_rows`), the empty lanes (`empty_lanes`),
-        all lanes (`lanes`), the lane bounds not at a safe node
-        (`unsafe_cuts`), and the longest lane's and the mean lane's rows
-        in the verifying decode (`rows_max`, `rows_mean`, the mean over
-        all lanes). Each
+        all lanes (`lanes`), the encode blocks of a block-parallel
+        artifact (`encode_blocks`, 0 on a serial one), the lane bounds not
+        at a safe node (`unsafe_cuts`), and the longest lane's and the
+        mean lane's rows in the verifying decode (`rows_max`, `rows_mean`,
+        the mean over all lanes). Each
         `emit.split` keeps its rule (`rule`, `_split_rule`), the bisected
         `target`, the split's longest and mean lane cost (`max_cost`,
-        `mean_cost`) and its bounds not at a safe node
-        (`unsafe_cuts`)."""
+        `mean_cost`), its bounds not at a safe node (`unsafe_cuts`) and
+        the encode-block starts it forced as bounds (`block_starts`, 0 on
+        a serial artifact)."""
         with trace.span("decode", lanes=num_lanes):
             return self._adjacency_device(num_lanes, launch)
 
@@ -1165,12 +1206,14 @@ class TorchGraphDecoder:
             pl["verified"] = True
             # the steady layout this plan keeps, on its plan.verify stage
             mc, rows = pl["post_meta"], pl["rows_np"]
+            bstarts = self._encode_block_starts()
             step.set(fixup_rounds=int(mc["rounds"]),
                      dirty_nodes=len(mc["order_np"]),
                      dirty_elements=int(mc["fx_srcs"].shape[0]),
                      two_run_rows=int(mc["two_run_rows"]),
                      empty_lanes=int((pl["starts_np"] >= pl["ends_np"]).sum()),
                      lanes=len(pl["starts_np"]), rows_max=int(rows.max()),
+                     encode_blocks=0 if bstarts is None else len(bstarts),
                      rows_mean=float(rows.mean()),
                      unsafe_cuts=unsafe_cuts(pl["starts_np"],
                                              pl.get("safe_np")))

@@ -123,10 +123,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         "wgt_ans_decode_raw": (
             [u16p, u64, u32, u8p, u64, u16p, u64p, u32p, u32p, u32p, u64p], i32),
         "wgt_scale_freqs": ([u64p, u64p, u64, u64, i64, u64p], i32),
-        "wgt_emit_split": ([f64p, f64p, u8p, u64, u64, i32, c.c_double, i64p], i32),
+        "wgt_emit_split": (
+            [f64p, f64p, u8p, u8p, u64, u64, i32, c.c_double, i64p], i32),
         "wgt_emit_split_last": (
-            [f64p, f64p, u8p, i32p, f64p, u64, u64, c.c_double, c.c_double,
-             i64p], i32),
+            [f64p, f64p, u8p, u8p, i32p, f64p, u64, u64, c.c_double,
+             c.c_double, i64p], i32),
         "wgt_ef_build_size": ([u64p, u64, u64], i64),
         "wgt_ef_build": ([u64p, u64, u64, u8p], i32),
         "wgt_ef_load": ([u8p, u64], void_p),
