@@ -1,6 +1,6 @@
 """Drives the PyTorch/CUDA port on one NVIDIA GPU and checks it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the CUDA kernels from webgraph_ans_torch/csrc (the token decode,
 decode_blocks, in token and aux mode, the merged-emit decode, decode_emit,
@@ -78,11 +78,19 @@ path, and are settled before the kernels line (plain_holds). Each phase prints
 one JSON line; any failure raises and exits non-zero. The line before the
 last lists the kernels, with their launches summed over every path (the
 launcher's ranks report their own); the last line is the device record.
+On each merged-emit artifact of the benchmark (the serial, the 512-block
+and both high-compression stores) a `fold` line gives the steady
+decode_emit's rows written by run folding, each lane's full steps and the
+lane with the most; with --parent DIR (a checkout, e.g. a `git archive`
+of another commit, unpacked) it also builds that checkout's decode_emit,
+holds it bit for bit against this one on every channel both write, and
+times the two in turns.
 Exits 1 without printing a result when CUDA is not available.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import importlib
 import json
@@ -1830,6 +1838,7 @@ def blocks_steady_phase(edec, bdec, adj, base_b: str, tmp: str) -> dict:
            "second_store_same_bytes": same_bytes,
            "serial_layout": block_layout(edec, epl)}
     emit("blocks_steady", graph="cnr-2000", blocks=ENCODE_BLOCKS, **out)
+    out["fold"] = fold_phase("cnr-2000 512 blocks", bdec, bpl, hold=True)
     if not (exact and same_bytes and not layout["crossing_lanes"]
             and not layout["halos_past_block"]
             and layout["block_starts_bound"] == layout["encode_blocks"]
@@ -1957,6 +1966,7 @@ def hc_safe_break_phase(adj, runs: PathRuns, smi: str, tmp: str) -> dict:
         raise SystemExit("hc safe-break: the fixup kernel differs from its "
                          "plain version")
     kernel["fixup"] = fixup
+    kernel["fold"] = fold_phase("cnr-2000 hc safe breaks", dec, pl)
     return kernel
 
 
@@ -2034,6 +2044,8 @@ def hc_no_breaks_phase(adj, runs: PathRuns, smi: str, tmp: str,
                          "split forced block starts, or the fixup kernel "
                          "differs from its plain version")
     kernel["fixup"] = fixup
+    kernel["fold"] = fold_phase("cnr-2000 hc no safe breaks", dec, pl,
+                                hold=True)
     return kernel
 
 
@@ -2222,8 +2234,137 @@ def scale_phases(runs: PathRuns, smi: str, tmp: str) -> dict:
     return sc.kernels
 
 
+# --parent DIR: a checkout (or `git archive`) of another commit whose
+# decode_emit the fold phases time in turns with this checkout's
+PARENT: str | None = None
+_PARENT_EMIT = None
+
+
+def parent_emit_kernel():
+    """--parent's decode_emit, built from that checkout's csrc once (into
+    BUILD_DIR/parent), as (run, ptxas report): run(eargs, T) launches it in
+    mark_deg mode on emit_args' inputs and returns its outputs (six
+    channels, or seven where that source already counts folded rows)."""
+    global _PARENT_EMIT
+    if _PARENT_EMIT is None:
+        import ctypes
+        from webgraph_ans_torch.ops import cuda_build
+        src = os.path.join(os.path.abspath(PARENT), "webgraph_ans_torch",
+                           "csrc", "decode_emit.cu")
+        lib_path = os.path.join(cuda_build.BUILD_DIR, "parent",
+                                "libdecode_emit.so")
+        info = cuda_build.build(src, lib_path, force=True)
+        lib = ctypes.CDLL(lib_path)
+        with open(src) as f:
+            outs = 7 if "void* fold" in f.read() else 6
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.wgt_decode_emit.argtypes = (
+            [ctypes.POINTER(ctypes.c_longlong), vp, vp, ctypes.c_longlong,
+             vp, vp] + [ci] * 6 + [vp] * (outs + 1))
+        lib.wgt_decode_emit.restype = ci
+
+        def run(eargs, T):
+            tables, regs, ptrs, window, mi, cap = eargs
+            L, dev, i32 = regs.shape[1], regs.device, torch.int32
+            res = [torch.empty((cap, L), dtype=i32, device=dev),
+                   torch.empty((cap, L), dtype=i32, device=dev),
+                   torch.empty((cap // 8, L), dtype=i32, device=dev),
+                   torch.empty(L, dtype=i32, device=dev),
+                   torch.empty(L, dtype=torch.bool, device=dev),
+                   torch.empty((6, L), dtype=i32, device=dev),
+                   torch.empty(L, dtype=i32, device=dev)][:outs]
+            err = lib.wgt_decode_emit(
+                cuda_build.codec_params(tables.params), tables.lut.data_ptr(),
+                tables.stream.data_ptr(),
+                tables.stream.shape[0], regs.data_ptr(), ptrs.data_ptr(), L,
+                window, mi, cap, T, 1, *(t.data_ptr() for t in res),
+                torch.cuda.current_stream(dev).cuda_stream)
+            if err != 0:
+                raise SystemExit(f"--parent's decode_emit failed: {err}")
+            return res
+
+        _PARENT_EMIT = (run, ptxas_report(info["log"]))
+    return _PARENT_EMIT
+
+
+def fold_phase(name: str, dec, pl, hold: bool = False) -> dict:
+    """The verified plan's steady decode_emit (mark_deg) by run folding:
+    the rows it writes in the fold's loop, each lane's full steps (rows
+    less folded rows), the lane with the most steps and the lanes within
+    3% of it, beside the lane of most rows and the lanes within 4% of it.
+    With hold, the kernel against its plain version on the
+    SCALE_PLAIN_LANES lanes around the lane of most steps (pending, as
+    hold_plain; the record's "plain"). With --parent, that checkout's
+    kernel on the same inputs, bit for bit on every channel both write,
+    timed in turns with this one (parent, this, this, parent, three
+    times; CUDA-event medians of TIMED_RUNS). Emits one `fold` line and
+    fails if the parent's outputs differ."""
+    from webgraph_ans_torch.ops.emit_cuda import decode_emit
+    T, cap = pl["T"], pl["cap"]
+    eargs = emit_args(dec, pl, cap)
+    ek = decode_emit(*eargs, T=T, mark_deg=True)
+    rows, fold = ek[3].long().cpu(), ek[6].long().cpu()
+    steps = rows - fold
+    starts, ends = pl["starts_np"], pl["ends_np"]
+
+    def lane_record(k):
+        return {"lane": k, "nodes": [int(starts[k]), int(ends[k])],
+                "rows": int(rows[k]), "fold_rows": int(fold[k]),
+                "steps": int(steps[k])}
+
+    out = {"graph": name, "lanes": len(starts), "cap": cap, "T": T,
+           "rows_max": int(rows.max()),
+           "rows_mean": float(rows.double().mean()),
+           "fold_rows": int(fold.sum()),
+           "fold_share": 100 * float(fold.sum()) / float(rows.sum()),
+           "steps_max": int(steps.max()),
+           "steps_mean": float(steps.double().mean()),
+           "steps_max_lane": lane_record(int(torch.argmax(steps))),
+           "lanes_within_3pct_of_steps_max":
+               int((100 * steps >= 97 * steps.max()).sum()),
+           "rows_max_lane": lane_record(int(torch.argmax(rows))),
+           "lanes_within_4pct_of_rows_max":
+               int((100 * rows >= 96 * rows.max()).sum()),
+           "longest_rows": sorted(rows.tolist(), reverse=True)[:5]}
+    if hold:
+        sl = longest_slice(steps)
+        sargs = (dec.tables, pl["regs"][:, sl].contiguous(), pl["ptrs"][sl],
+                 dec.window, dec.min_interval, cap)
+        out["plain"] = hold_plain(
+            ek, "webgraph_ans_torch.ops.emit_torch.decode_emit_plain",
+            sargs, {"T": T, "mark_deg": True}, sl, cap,
+            int(rows[sl].max()))
+    if PARENT:
+        run, ptxas = parent_emit_kernel()
+        pk = run(eargs, T)
+        same = all(torch.equal(a, b) for a, b in zip(pk, ek))
+        channels = len(pk)
+        del pk
+        times = {"parent": [], "change": []}
+        for side in ("parent", "change", "change", "parent") * 3:
+            fn = ((lambda: run(eargs, T)) if side == "parent" else
+                  (lambda: decode_emit(*eargs, T=T, mark_deg=True)))
+            times[side].append(cuda_ms(fn)["median"])
+        ms = {k: statistics.median(v) for k, v in times.items()}
+        out["vs_parent"] = {"root": PARENT, "bit_equal": same,
+                            "channels": channels, "ms": times,
+                            "median_ms": ms,
+                            "change_over_parent": ms["change"] / ms["parent"],
+                            "parent_ptxas": ptxas}
+    emit("fold", **out)
+    if PARENT and not out["vs_parent"]["bit_equal"]:
+        raise SystemExit(f"{name}: decode_emit differs from --parent's")
+    return out
+
+
 def main() -> int:
-    global HOLDS
+    global HOLDS, PARENT
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="a checkout of another commit whose "
+                    "decode_emit the fold phases time in turns with this "
+                    "one's")
+    args = ap.parse_args()
+    PARENT = args.parent
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -2419,7 +2560,7 @@ def main() -> int:
                 if T not in caps:   # a cap just above the rows lanes need
                     caps[T] = epl_s["cap"]
                     while True:
-                        *_, rows, ok, _ = emit_cuda.decode_emit(
+                        _, _, _, rows, ok, *_ = emit_cuda.decode_emit(
                             *emit_args(edec_s, epl_s, caps[T]), T=T)
                         if bool(ok.all()):
                             break
@@ -2609,6 +2750,8 @@ def main() -> int:
         emit("emit_kernel_time", kernel="decode_emit", mark_deg=True,
              ms=t_emit, plain_ms=eplain_s * 1e3, library_ms=None,
              rows_used_max=int(ek[3].max()), **geometry, **ebound)
+        # ---- 10c. its rows by run folding (and --parent's kernel) ----
+        fold_phase("cnr-2000", edec, epl)
 
         # ---- 11. encode kernel vs plain on small inputs: the 2000-node
         # graph of phase 3 under each configuration, the edge graphs, a
@@ -2747,7 +2890,8 @@ def main() -> int:
                              "or the merged-emit plan never verified")
         # ---- 14b. its steady plan, split inside the encode blocks, beside
         # the serial one's ----
-        blocks_steady_phase(edec, bdec, adj, base_b, tmp)
+        blocks_fold = blocks_steady_phase(edec, bdec, adj, base_b,
+                                          tmp)["fold"]
 
         # ---- 15-19. the sort path, its fallbacks and random access ----
         runs = PathRuns()
@@ -2769,7 +2913,9 @@ def main() -> int:
         # ---- 26-31. every single-device path on the JAX bench's
         # 4M-node synthetic fixture ----
         scale = scale_phases(runs, smi, tmp)
-        settle_holds({**scale, "decode_emit_hc": hc_kernel})
+        settle_holds({**scale, "decode_emit_hc": hc_kernel,
+                      "decode_emit_blocks_cnr": blocks_fold,
+                      "decode_emit_hcref": hcref_kernel["fold"]})
 
     if spills:
         raise SystemExit(f"kernel instances spill registers: {spills}")
@@ -2821,14 +2967,18 @@ def main() -> int:
                       and held["decode_emit"]["bit_equal"]
                       and held["decode_emit_blocks"]["bit_equal"]
                       and held["decode_emit_ondemand"]["bit_equal"]
-                      and hc_kernel["plain"]["bit_equal"]),
+                      and hc_kernel["plain"]["bit_equal"]
+                      and blocks_fold["plain"]["bit_equal"]
+                      and hcref_kernel["fold"]["plain"]["bit_equal"]),
         "max_abs_err": max(cmp_emit["max_abs_err"],
                            ra_cmp["decode_emit"]["max_abs_err"],
                            so_cmp["decode_emit"]["max_abs_err"],
                            held["decode_emit"]["max_abs_err"],
                            held["decode_emit_blocks"]["max_abs_err"],
                            held["decode_emit_ondemand"]["max_abs_err"],
-                           hc_kernel["plain"]["max_abs_err"]),
+                           hc_kernel["plain"]["max_abs_err"],
+                           blocks_fold["plain"]["max_abs_err"],
+                           hcref_kernel["fold"]["plain"]["max_abs_err"]),
         "ms": t_emit["median"],
         "plain_ms": eplain_s * 1e3, "bound_ms": ebound["bound_ms"],
         "bound_by": ebound["bound_by"], "library_ms": None,

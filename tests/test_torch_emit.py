@@ -25,6 +25,8 @@ from webgraph_ans_tpu.bvgraph.store import compress_adjacency
 from webgraph_ans_tpu.bvgraph.synth import synth_web_graph
 from webgraph_ans_tpu.ops.emit_pallas import decode_emit_pallas
 from webgraph_ans_tpu.ops.graph_decode import TpuGraphDecoder
+from webgraph_ans_torch.bvgraph import graph as torch_graph
+from webgraph_ans_torch.bvgraph import store as torch_store
 from webgraph_ans_torch.bvgraph.random_access import ANSBvGraph as TorchGraph
 from webgraph_ans_torch.ops import cuda_build, emit_cuda, emit_torch
 from webgraph_ans_torch.ops.graph_decode import TorchGraphDecoder
@@ -34,6 +36,8 @@ import jax_native_build
 jax_native_build.ensure()
 
 LANES = 8
+# the six channels of the TPU kernel; the port's seventh output, the
+# folded rows a lane, has no counterpart there
 CHANNELS = ("val", "xch", "nib", "rows_used", "ok", "diag")
 
 
@@ -256,3 +260,51 @@ def test_emit_kernel_build_command(monkeypatch, tmp_path):
     assert cmd[0] == "nvcc" and "arch=compute_90a,code=sm_90a" in cmd
     assert cmd[-1] == emit_cuda.SOURCE and cuda_build.CSRC_DIR in cmd
     assert emit_cuda.build()["seconds"] == 0.0 and len(calls) == 1
+
+
+def _port_decoder(lists, window, min_interval):
+    """The port's decoder (plain versions) over lists stored by the
+    port's own store."""
+    res = torch_store.compress_adjacency(
+        torch_graph.Adjacency.from_lists(lists), window, 3, min_interval)
+    return TorchGraphDecoder(TorchGraph(res.prelude, res.states,
+                                        res.pointers), device="cpu")
+
+
+def _plain_at(dec, lanes, cap=512, T=512):
+    pl = dec._emit_plan(lanes)
+    return emit_torch.decode_emit_plain(dec.tables, pl["regs"], pl["ptrs"],
+                                        dec.window, dec.min_interval, cap, T)
+
+
+@pytest.mark.parametrize("window,min_interval,step", [(0, 0, 1), (0, 2, 2)],
+                         ids=["no_runs", "no_consecutive_ids"])
+def test_fold_rows_zero_where_no_run_can_fold(window, min_interval, step):
+    """Window 0 copies nothing; min_interval 0 stores no interval, and
+    lists of ids two apart leave no interval to store: no run, no row
+    folded."""
+    rng = np.random.default_rng(11)
+    lists = [(step * np.sort(rng.choice(120, size=int(rng.integers(0, 12)),
+                                        replace=False))).tolist()
+             for _ in range(240)]
+    out = _plain_at(_port_decoder(lists, window, min_interval), 8)
+    assert bool(out[4].all())
+    assert out[6].dtype == torch.int32 and out[6].shape == (8,)
+    assert not bool(out[6].any())
+
+
+def test_fold_rows_match_a_hand_count():
+    """One lane, three nodes: 1..10 (one interval run, no reference) and
+    two empty lists, window 7. Rows 0-4 decode node 0's five tokens
+    (outdegree, reference, interval count, start, length); row 4 queues
+    its meta, and the emission pops it, activates the run and writes 1.
+    Rows 5-6 decode nodes 1 and 2 (outdegree 0) and finish the decode
+    side, so they write 2 and 3 by full steps. Row 7 writes 4 with the
+    decode side finished and no queue moving: the row that starts the
+    fold, itself a full step. Rows 8-13 write 5..10 folded (6 rows); row
+    13 finishes the node; rows 14-15 pop the empty nodes."""
+    out = _plain_at(_port_decoder([list(range(1, 11)), [], []], 7, 2), 1,
+                    cap=64, T=64)
+    assert out[3].tolist() == [16] and bool(out[4].all())
+    assert out[0][:16, 0].tolist() == [0] * 4 + list(range(1, 11)) + [0, 0]
+    assert out[6].tolist() == [6]

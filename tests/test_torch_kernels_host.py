@@ -96,7 +96,7 @@ static void run_w(const long long* params, const void* lut,
                   const int* regs, const long long* ptrs,
                   int L, int mi, int cap, int T, int mark_deg, int* val,
                   int* xch, uint32_t* nib, int* rows, uint8_t* ok, int* diag,
-                  int lanes) {
+                  int* fold, int lanes) {
   const CodecParams prm = codec_params(params);
   std::vector<int> buf(smem_ints_per_lane(W, T) * lanes, 0x5a5a5a5a);
   g_smem = buf.data();
@@ -108,7 +108,7 @@ static void run_w(const long long* params, const void* lut,
       decode_emit_kernel<W>(prm, static_cast<const uint2*>(lut),
           static_cast<const uint16_t*>(stream), stream_len - 1,
           regs, ptrs, L, mi, cap, T, mark_deg, val, xch, nib, rows, ok,
-          diag);
+          diag, fold);
     }
 }
 extern "C" int run_emit(int window, const long long* params, const void* lut,
@@ -116,12 +116,13 @@ extern "C" int run_emit(int window, const long long* params, const void* lut,
                         const int* regs,
                         const long long* ptrs, int L, int mi, int cap, int T,
                         int mark_deg, int* val, int* xch, uint32_t* nib,
-                        int* rows, uint8_t* ok, int* diag, int lanes) {
+                        int* rows, uint8_t* ok, int* diag, int* fold,
+                        int lanes) {
   auto fn = window == 0 ? run_w<0> : window == 7 ? run_w<7>
             : window == 16 ? run_w<16> : nullptr;
   if (!fn) return 1;
   fn(params, lut, stream, stream_len, regs, ptrs, L, mi, cap, T,
-     mark_deg, val, xch, nib, rows, ok, diag, lanes);
+     mark_deg, val, xch, nib, rows, ok, diag, fold, lanes);
   return 0;
 }
 """
@@ -194,7 +195,7 @@ def host_libs(tmp_path_factory):
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     libs["decode_emit.cu"].run_emit.argtypes = (
         [ci, ctypes.POINTER(cl), vp, vp, cl, vp, vp] + [ci] * 5
-        + [vp] * 6 + [ci])
+        + [vp] * 7 + [ci])
     libs["decode_blocks.cu"].run_blocks.argtypes = (
         [ctypes.POINTER(cl), vp, vp, cl] + [vp] * 5 + [ci] * 5 + [vp] * 3)
     return libs
@@ -273,6 +274,7 @@ def _emit_host(lib, dec, pl, cap, T, mark_deg, lanes):
     nib = torch.empty((cap // 8, L), dtype=i32)
     rows, ok = torch.empty(L, dtype=i32), torch.empty(L, dtype=torch.bool)
     diag = torch.empty((6, L), dtype=i32)
+    fold = torch.empty(L, dtype=i32)
     t = dec.tables
     assert lib.run_emit(dec.window, cuda_build.codec_params(t.params),
                         t.lut.data_ptr(), t.stream.data_ptr(),
@@ -280,8 +282,8 @@ def _emit_host(lib, dec, pl, cap, T, mark_deg, lanes):
                         ptrs.data_ptr(), L, dec.min_interval, cap, T,
                         int(mark_deg), val.data_ptr(), xch.data_ptr(),
                         nib.data_ptr(), rows.data_ptr(), ok.data_ptr(),
-                        diag.data_ptr(), lanes) == 0
-    return val, xch, nib, rows, ok, diag
+                        diag.data_ptr(), fold.data_ptr(), lanes) == 0
+    return val, xch, nib, rows, ok, diag, fold
 
 
 def _codes(nib):
@@ -300,36 +302,74 @@ def emit_adj():
     return Adjacency.from_lists(lists)
 
 
-# (config, ring depth T or None for the plan's, mark_deg): a 32-row ring
-# puts copy sources out of reach (codes 8 and 9); the phase-sampled
-# artifact has no halo (cross-lane parents: code 7)
-EMIT_CASES = [(CONFIGS[0], 32, False), (CONFIGS[0], 8, True),
-              (CONFIGS[0], None, True), (CONFIGS[1], None, False),
-              (CONFIGS[2], None, True), (CONFIGS[3], None, True),
-              (CONFIGS[4], None, False), (CONFIGS[4], None, True)]
-
-
-def _case_id(case):
-    cfg, T, mark_deg = case
-    return f"{cfg[0]}-T{T}-md{int(mark_deg)}"
+def fold_lists(n: int = 3200, seed: int = 9) -> list:
+    """A graph made to fold: long runs that the merged emit writes while
+    its decode side stalls or has finished, among short random lists."""
+    rng = np.random.default_rng(seed)
+    lists = [sorted(rng.choice(n, size=int(rng.integers(0, 4)),
+                               replace=False).tolist()) for _ in range(n)]
+    # 3,000 consecutive successors and no reference: one interval run
+    lists[100] = list(range(3000))
+    # a clean node copying its whole parent, with interval runs between the
+    # parent's stretches and residuals on both sides of each head: copy and
+    # interval runs take turns
+    parent = sorted(set(range(0, 600, 2)) | set(range(800, 1400, 2)))
+    lists[1100] = parent
+    lists[1101] = sorted(set(parent) | set(range(600, 800))
+                         | set(range(1400, 1600)) | {301, 901, 1299, 1601})
+    # a chain at reference distance 1: each copy run reads the rows the
+    # fold of the node before it wrote
+    chain = list(range(500)) + list(range(900, 1400))
+    lists[2100] = chain
+    lists[2101] = sorted(set(chain) | {700, 800})
+    lists[2102] = sorted(set(lists[2101]) | {750})
+    return lists
 
 
 @pytest.fixture(scope="module")
-def emit_runs(emit_adj):
-    """The plain version's outputs for each case, at a cap every lane
-    finishes within, with the decoder and plan that produced them."""
+def fold_adj():
+    return Adjacency.from_lists(fold_lists())
+
+
+# (config, ring depth T or None for the plan's, mark_deg, cap or None for
+# one every lane finishes within): a 32-row ring puts copy sources out of
+# reach (codes 8 and 9); the phase-sampled artifact has no halo (cross-lane
+# parents: code 7). The fold cases run fold_lists' graph: a ring deep
+# enough for its copies, one that leaves them dirty (their placeholders
+# fold), and a cap that cuts runs in the middle.
+FOLD = ("fold_runs", 7, 3, 2, 1)
+EMIT_CASES = [(CONFIGS[0], 32, False, None), (CONFIGS[0], 8, True, None),
+              (CONFIGS[0], None, True, None), (CONFIGS[1], None, False, None),
+              (CONFIGS[2], None, True, None), (CONFIGS[3], None, True, None),
+              (CONFIGS[4], None, False, None), (CONFIGS[4], None, True, None),
+              (FOLD, 4096, False, 4096), (FOLD, 4096, True, 4096),
+              (FOLD, 512, True, 4096), (FOLD, 4096, False, 1600)]
+
+
+def _case_id(case):
+    cfg, T, mark_deg, cap = case
+    tail = "" if cfg is not FOLD else f"-cap{cap}"
+    return f"{cfg[0]}-T{T}-md{int(mark_deg)}{tail}"
+
+
+@pytest.fixture(scope="module")
+def emit_runs(emit_adj, fold_adj):
+    """The plain version's outputs for each case, at the case's cap or at
+    one every lane finishes within, with the decoder and plan that
+    produced them."""
     runs = {}
     for case in EMIT_CASES:
-        cfg, T, mark_deg = case
-        dec = _decoder(emit_adj, cfg)
+        cfg, T, mark_deg, cap = case
+        dec = _decoder(fold_adj if cfg is FOLD else emit_adj, cfg)
         pl = dec._emit_plan(LANES)
         T = T or pl["T"]
-        cap = pl["cap"]
+        grow = cap is None
+        cap = cap or pl["cap"]
         while True:
             want = decode_emit_plain(dec.tables, pl["regs"], pl["ptrs"],
                                      dec.window, dec.min_interval, cap, T,
                                      mark_deg)
-            if bool(want[4].all()):
+            if not grow or bool(want[4].all()):
                 break
             cap *= 2
         runs[_case_id(case)] = dec, pl, cap, T, want
@@ -338,13 +378,37 @@ def emit_runs(emit_adj):
 
 @pytest.mark.parametrize("case", EMIT_CASES, ids=_case_id)
 def test_decode_emit_host_build_matches_plain(host_libs, emit_runs, case):
+    """Every channel and the folded rows, at 32, 5, 2 and 1 lanes a
+    block."""
     mark_deg = case[2]
     dec, pl, cap, T, want = emit_runs[_case_id(case)]
     lib = host_libs["decode_emit.cu"]
     for lanes in (32, 5, 2, 1):
         got = _emit_host(lib, dec, pl, cap, T, mark_deg, lanes)
+        assert len(got) == len(want) == 7
         for ch, (g, w) in enumerate(zip(got, want)):
             assert torch.equal(g, w), (lanes, ch)
+
+
+def test_fold_cases_fold_their_runs(emit_runs):
+    """The fold graph's lanes fold most of the rows of its long runs: the
+    3,000-element interval, the copies of a whole parent beside intervals,
+    the reference chain; its cut cap leaves lanes unfinished in a fold;
+    the other cases fold too."""
+    for cid, (dec, pl, cap, T, want) in emit_runs.items():
+        rows, ok, fold = want[3], want[4], want[6]
+        assert bool((fold <= rows).all()), cid
+        if not cid.startswith("fold_runs"):
+            assert int(fold.sum()) > 0, cid
+            continue
+        lane = np.searchsorted(pl["ends_np"], [100, 1101, 2102],
+                               side="right")
+        if cap == 1600:
+            assert not bool(ok.all()) and int(fold.max()) > 1000, cid
+            continue
+        assert bool(ok.all()), cid
+        assert int(fold[lane[0]]) >= 2900, cid
+        assert all(int(fold[k]) > 500 for k in lane[1:]), (cid, fold)
 
 
 def test_emit_cases_hit_every_dirty_code(emit_runs):

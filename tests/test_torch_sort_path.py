@@ -322,7 +322,8 @@ def _emit_outputs(args, cap):
     z = torch.zeros((cap, L), dtype=torch.int32)
     return (z, z, z[:cap // 8], torch.zeros(L, dtype=torch.int32),
             torch.zeros(L, dtype=torch.bool),
-            torch.zeros((6, L), dtype=torch.int32))
+            torch.zeros((6, L), dtype=torch.int32),
+            torch.zeros(L, dtype=torch.int32))
 
 
 def _assert_bounded(calls, cap0, bound):

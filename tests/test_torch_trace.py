@@ -204,8 +204,10 @@ def test_verify_stage_records_the_steady_layout(case, request):
     two-run step from the post-pass's cache, the empty lanes, all lanes,
     the bounds not at a safe node and the encode blocks (none: a serial
     artifact) from the plan, the longest and the mean lane's rows from its
-    decode; plan.safe keeps its safe nodes. The
-    high-compression graph's steady state has dirty chains to fix up."""
+    decode, and that decode's folded rows and each lane's full steps
+    (rows less folded rows: the longest and the mean); plan.safe keeps
+    its safe nodes. The high-compression graph's steady state has dirty
+    chains to fix up."""
     if case == "hc":
         dec, _, stages = request.getfixturevalue("hc_decoder")
         lanes = HC_LANES
@@ -216,6 +218,7 @@ def test_verify_stage_records_the_steady_layout(case, request):
     (verify,) = [s for s in stages if s.name == "plan.verify"]
     (safe,) = [s for s in stages if s.name == "plan.safe"]
     mc = pl["post_meta"]
+    steps = pl["rows_np"] - pl["fold_np"]
     assert verify.attrs == {
         "lanes": len(pl["starts_np"]), "fixup_rounds": mc["rounds"],
         "dirty_nodes": len(mc["order_np"]),
@@ -224,10 +227,14 @@ def test_verify_stage_records_the_steady_layout(case, request):
         "empty_lanes": int((pl["starts_np"] >= pl["ends_np"]).sum()),
         "rows_max": int(pl["rows_np"].max()),
         "rows_mean": float(pl["rows_np"].mean()), "encode_blocks": 0,
+        "fold_rows": int(pl["fold_np"].sum()), "steps_max": int(steps.max()),
+        "steps_mean": float(steps.mean()),
         "unsafe_cuts": graph_decode.unsafe_cuts(pl["starts_np"],
                                                 pl["safe_np"])}
     assert verify.attrs["lanes"] == pl["regs"].shape[1] == lanes
     assert 0 <= verify.attrs["empty_lanes"] < verify.attrs["lanes"]
+    assert 0 < verify.attrs["fold_rows"] < pl["rows_np"].sum()
+    assert verify.attrs["steps_max"] <= verify.attrs["rows_max"]
     assert safe.attrs == {"safe_nodes": int(pl["safe_np"].sum())}
     if case == "hc":
         assert 1 <= verify.attrs["fixup_rounds"] <= verify.attrs[

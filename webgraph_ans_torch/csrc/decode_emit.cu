@@ -38,7 +38,15 @@
 //   slot for slot, what the reference's shift-down array keeps (Queue);
 // - the codec parameters come from shared memory, and each token's LUT
 //   row is requested a step ahead, while the emission substep runs
-//   (ans_fsm.cuh).
+//   (ans_fsm.cuh);
+// - run folding: while the decode side is stalled or finished, a row that
+//   only continues a copy or interval run is written by a tight loop that
+//   updates the run alone, not by a full step (~40% of cnr-2000's rows).
+//   On an H100 a folded row took ~250 cycles, a full step that only emits
+//   ~1,300-1,900 and one that decodes ~2,100-2,300, so the kernel still
+//   ends with the lanes that decode the most rows (PERF.md). The loop and
+//   why its rows are exact are at the end of the step; fold_rows counts
+//   its rows.
 // The launcher halves the lanes a block when T's ring would not fit the
 // card's per-block shared memory, and refuses a T for which even one lane
 // does not fit.
@@ -152,7 +160,8 @@ __global__ void __launch_bounds__(kLanesPerBlock) decode_emit_kernel(
     const long long* __restrict__ ptrs, int L, int min_interval, int cap,
     int T, int mark_deg, int* __restrict__ val, int* __restrict__ xch,
     uint32_t* __restrict__ nib, int* __restrict__ rows_used,
-    uint8_t* __restrict__ ok, int* __restrict__ diag) {
+    uint8_t* __restrict__ ok, int* __restrict__ diag,
+    int* __restrict__ fold_rows) {
   constexpr int R = W + 1;
   constexpr int DEG = NFIX, BASE = DEG + R, DIRT = BASE + R;
   constexpr int QC0 = DIRT + R, QI0 = QC0 + 2 * QC, QR0 = QI0 + 2 * QI;
@@ -227,7 +236,7 @@ __global__ void __launch_bounds__(kLanesPerBlock) decode_emit_kernel(
 
   uint32_t cpk = 0xFFFFFFFFu;
   const int tmask = T - 1;
-  int row = 0;
+  int row = 0, folded = 0;
   for (; row < cap; ++row) {
     const int p = phase;
     const bool active = p != P_DONE;
@@ -249,9 +258,12 @@ __global__ void __launch_bounds__(kLanesPerBlock) decode_emit_kernel(
     const int tagd = x & 0xFF;
     qn.push(early, g.d, (refreg << 10) | (1 << 9) | tagd, 0);
     if (early) metasent = 1;
+    // set by each event that moves a queue or the decode side (run folding)
+    int moved = early ? 1 : 0;
 
     // ---------------- rANS step + grammar FSM ----------------
     if (active && !stall) {
+      moved = 1;
       const int c = p;
       const int v = static_cast<int>(
           ans_step(sp, e, stream, last_word, c, state, ptr));
@@ -324,6 +336,7 @@ __global__ void __launch_bounds__(kLanesPerBlock) decode_emit_kernel(
     bool dirty = false, empty = false;
     int dcause = 0;
     if (can_pop) {
+      moved = 1;
       const int mp = qn.head(1), mncop = qn.head(2);
       const int mref = mp >> 10;
       const int mdirty0 = (mp >> 9) & 1;
@@ -368,6 +381,7 @@ __global__ void __launch_bounds__(kLanesPerBlock) decode_emit_kernel(
     const bool act_c = emit_now && cc_left == 0 && qc.n > 0 &&
                        (qc.head(1) >> 20) == tagx;
     if (act_c) {
+      moved = 1;
       cc_j = qc.head(0);
       cc_left = qc.head(1) & 0xFFFFF;
       cc_src = e_pbase + cc_j;
@@ -376,6 +390,7 @@ __global__ void __launch_bounds__(kLanesPerBlock) decode_emit_kernel(
     const bool act_i = emit_now && ci_left == 0 && qi.n > 0 &&
                        (qi.head(1) >> 20) == tagx;
     if (act_i) {
+      moved = 1;
       ci_val = qi.head(0);
       ci_left = qi.head(1) & 0xFFFFF;
     }
@@ -461,14 +476,91 @@ __global__ void __launch_bounds__(kLanesPerBlock) decode_emit_kernel(
       e_mdirty = (dirty ? 1 : 0) | (empty ? 2 : 0);
     }
 
-    val[static_cast<size_t>(row) * Ls + l] = out_v;
-    xch[static_cast<size_t>(row) * Ls + l] = out_x;
-    ring[row & tmask] = out_v;
-    const int shift = 4 * (row & 7);
-    cpk = (cpk & ~(0xFu << shift)) | (static_cast<uint32_t>(code) << shift);
-    if ((row & 7) == 7) {
-      nib[static_cast<size_t>(row >> 3) * Ls + l] = cpk;
-      cpk = 0xFFFFFFFFu;
+    // row r's val, xch, ring slot and code nibble (the packed word at
+    // every 8th row)
+    auto put = [&](int r, int v, int c) {
+      val[static_cast<size_t>(r) * Ls + l] = v;
+      xch[static_cast<size_t>(r) * Ls + l] = out_x;
+      ring[r & tmask] = v;
+      const int shift = 4 * (r & 7);
+      cpk = (cpk & ~(0xFu << shift)) | (static_cast<uint32_t>(c) << shift);
+      if ((r & 7) == 7) {
+        nib[static_cast<size_t>(r >> 3) * Ls + l] = cpk;
+        cpk = 0xFFFFFFFFu;
+      }
+    };
+    put(row, out_v, code);
+
+    // ---- run folding ----
+    // A row that emitted from a copy or interval run while the decode side
+    // did nothing (stalled or finished) and no queue moved (no early meta,
+    // no meta pop, no run activation) leaves every input of the next step
+    // as it found it but the run's own registers: stall and phase, the four
+    // queue counts and heads, metasent and x, md (xch in mark_deg mode), ex
+    // and halo, the group-done signals; e_first is 0 after an emitted row.
+    // The next row then runs the same merge over the same residual head
+    // (and, for a copy run, the same interval head), so it either takes the
+    // run again, with nothing else to do but write the row, or differs.
+    // The loops below write those rows with the run's update alone, one at
+    // a time, and stop before the first row at which the full step could
+    // do anything else: the run spent (the next row activates a run), the
+    // node finished (that row is still written, with node_fin's update),
+    // the cap, or, for a clean node, the merge choosing another head. The
+    // copy source is read from the ring row by row before the row is
+    // written, in the full step's order, so a source row the fold itself
+    // wrote reads as it would have. Every channel stays bit for bit what
+    // one full step a row writes (emit_torch.decode_emit_plain, which
+    // counts the same rows). One flag, `moved`, stands for every event that
+    // rules a fold out (the decode step, an early meta, a meta pop, a run
+    // activation): keeping the five predicates alive to the row's end
+    // instead slowed every step by ~5% on an H100 (PERF.md).
+    const bool quiet = moved == 0 && em_active3;
+    if (quiet && (emit_c || emit_i)) {
+      const int fcode = (emit_c && !clean) ? C_PLACE : C_EL;
+      int r1 = row + 1;
+      bool fin = false;
+      if (emit_c) {
+        for (; cc_left > 0 && r1 < cap; ++r1) {
+          const int v = clean ? ring[cc_src & tmask] : cc_j;
+          if (clean && (v > hi_k || v > hr_k)) break;
+          ++cc_j;
+          ++cc_src;
+          --cc_left;
+          put(r1, v, fcode);
+          if (++e_emitted >= e_d) {
+            fin = true;
+            ++r1;
+            break;
+          }
+        }
+      } else {
+        for (; ci_left > 0 && r1 < cap; ++r1) {
+          const int v = ci_val;
+          if (clean) {
+            if (v > hr_k) break;
+            if (cop_av) {   // a copy run waits: its head may take the row
+              const int hcv = ring[cc_src & tmask];
+              if (hcv <= v && hcv <= hr_k) break;
+            }
+          }
+          ++ci_val;
+          --ci_left;
+          put(r1, v, fcode);
+          if (++e_emitted >= e_d) {
+            fin = true;
+            ++r1;
+            break;
+          }
+        }
+      }
+      folded += r1 - row - 1;
+      row = r1 - 1;
+      e_donerow = r1;
+      if (fin) {
+        e_active = 0;
+        ++e_x;
+        if (++e_xmod >= R) e_xmod = 0;
+      }
     }
   }
   // a finished lane is frozen: every later row repeats its stale
@@ -493,6 +585,7 @@ __global__ void __launch_bounds__(kLanesPerBlock) decode_emit_kernel(
   diag[3 * Ls + l] = e_x;
   diag[4 * Ls + l] = e_active * 1000000 + e_emitted;
   diag[5 * Ls + l] = qn.n * 1000 + qc.n * 100 + qi.n * 10 + qr.n;
+  fold_rows[l] = folded;
 }
 
 // Lanes per block for a ring of T rows: kLanesPerBlock, halved until the
@@ -524,7 +617,7 @@ int launch(const CodecParams& prm, const void* lut, const void* stream,
            long long stream_len, const void* regs, const void* ptrs, int L,
            int min_interval, int cap, int T, int mark_deg, void* val,
            void* xch, void* nib, void* rows, void* ok, void* diag,
-           int lanes, long long smem, cudaStream_t s) {
+           void* fold, int lanes, long long smem, cudaStream_t s) {
   // the opt-in above 48 KB, once per instance and size (never inside a
   // CUDA-graph capture that follows a launch of the same shape)
   static long long granted = 0;
@@ -543,14 +636,15 @@ int launch(const CodecParams& prm, const void* lut, const void* stream,
       static_cast<const long long*>(ptrs), L, min_interval, cap, T, mark_deg,
       static_cast<int*>(val), static_cast<int*>(xch),
       static_cast<uint32_t*>(nib), static_cast<int*>(rows),
-      static_cast<uint8_t*>(ok), static_cast<int*>(diag));
+      static_cast<uint8_t*>(ok), static_cast<int*>(diag),
+      static_cast<int*>(fold));
   return static_cast<int>(cudaGetLastError());
 }
 
 using LaunchFn = int (*)(const CodecParams&, const void*, const void*,
                          long long, const void*, const void*, int, int, int,
                          int, int, void*, void*, void*, void*, void*, void*,
-                         int, long long, cudaStream_t);
+                         void*, int, long long, cudaStream_t);
 
 template <int... Ws>
 struct Table {
@@ -572,14 +666,15 @@ extern "C" int wgt_decode_emit_geometry(int window, int T, int* lanes,
 
 // regs: [nreg, L] int32 register file (emit_torch.emit_init_regs), ptrs:
 // [L] int64 absolute entry pointers. Every row of val, xch, nib is
-// written. Returns cudaGetLastError() after the launch, or the error of
-// the shared-memory opt-in, or cudaErrorInvalidValue when no block of
-// even one lane fits the ring.
+// written; fold: [L] int32, the rows each lane wrote by run folding.
+// Returns cudaGetLastError() after the launch, or the error of the
+// shared-memory opt-in, or cudaErrorInvalidValue when no block of even one
+// lane fits the ring.
 extern "C" int wgt_decode_emit(
     const long long* params, const void* lut, const void* stream,
     long long stream_len, const void* regs, const void* ptrs, int L,
     int window, int min_interval, int cap, int T, int mark_deg, void* val,
-    void* xch, void* nib, void* rows, void* ok, void* diag,
+    void* xch, void* nib, void* rows, void* ok, void* diag, void* fold,
     void* cuda_stream) {
   if (window < 0 || window > kMaxWindow || cap % kUnroll != 0 || T < 8 ||
       (T & (T - 1)) != 0 || stream_len < 1 || params[45] < 1)
@@ -593,7 +688,7 @@ extern "C" int wgt_decode_emit(
   if (L > 0)
     return Fns::fns[window](prm, lut, stream, stream_len, regs, ptrs, L,
                             min_interval, cap, T, mark_deg, val, xch, nib,
-                            rows, ok, diag, lanes, smem,
+                            rows, ok, diag, fold, lanes, smem,
                             static_cast<cudaStream_t>(cuda_stream));
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,8 +5,10 @@ The kernel replaces the TPU kernel `decode_emit_pallas`
 (webgraph_ans_tpu/ops/emit_pallas.py:501): one thread per lane runs the
 token FSM, the bounded run queues and the merge of ops/emit_torch.py, with
 the T-row output ring, the queues and the window rings in the block's
-shared memory. It is built with nvcc for sm_90a into
-`webgraph_ans_torch/build/` on first use and loaded with ctypes.
+shared memory, and writes the rows that only continue a copy or interval
+run in a tight loop (run folding; the seventh output counts them). It is
+built with nvcc for sm_90a into `webgraph_ans_torch/build/` on first use
+and loaded with ctypes.
 
 `decode_emit` dispatches on the tensors' device only: CPU tensors go to
 the plain PyTorch version (emit_torch.decode_emit_plain), CUDA tensors to
@@ -49,7 +51,8 @@ def _load() -> ctypes.CDLL:
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.wgt_decode_emit.argtypes = [
                 ctypes.POINTER(ctypes.c_longlong), vp, vp, ctypes.c_longlong,
-                vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp]
+                vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp,
+                vp]
             lib.wgt_decode_emit.restype = ci
             lib.wgt_decode_emit_geometry.argtypes = [
                 ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_longlong)]
@@ -121,18 +124,19 @@ def _launch(tables: DecoderTables, regs, ptrs, window: int,
     rows = torch.empty(L, dtype=i32, device=dev)
     ok = torch.empty(L, dtype=torch.bool, device=dev)
     diag = torch.empty((6, L), dtype=i32, device=dev)
+    fold = torch.empty(L, dtype=i32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.wgt_decode_emit(
         c_params, tables.lut.data_ptr(), tables.stream.data_ptr(),
         tables.stream.shape[0], regs.data_ptr(), ptrs.data_ptr(), L, window,
         min_interval, cap, T, int(mark_deg), val.data_ptr(), xch.data_ptr(),
         nib.data_ptr(), rows.data_ptr(), ok.data_ptr(), diag.data_ptr(),
-        stream)
+        fold.data_ptr(), stream)
     if err != 0:
         _error(lib, err, f"kernel launch (window {window}, T {T})")
     if not torch.cuda.is_current_stream_capturing():
         decode_emit.launches += 1
-    return val, xch, nib, rows, ok, diag
+    return val, xch, nib, rows, ok, diag, fold
 
 
 def decode_emit(tables: DecoderTables, regs, ptrs, window: int,

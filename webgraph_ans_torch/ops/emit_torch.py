@@ -174,7 +174,14 @@ def decode_emit_plain(tables: DecoderTables, regs: torch.Tensor,
     Returns (val [cap, L], xch [cap, L], nib [cap//8, L] int32 bit
     patterns, rows_used [L] int32, ok [L] bool, diag [6, L] int32: last
     non-halo marker row and its dirty/empty bits, decode node, emission
-    node, active*1e6 + emitted, queue fill)."""
+    node, active*1e6 + emitted, queue fill, fold_rows [L] int32).
+
+    fold_rows counts, per lane, the rows the CUDA kernel writes by run
+    folding, one step a row here: a row that emits from the same copy
+    (or interval) run as the row before it, where both rows left the
+    decode side idle (stalled or finished) and moved no queue (no early
+    meta, no meta pop, no run activation), and the row before it did not
+    finish its node."""
     if cap % UNROLL or T & (T - 1) or T < UNROLL:
         raise ValueError(f"cap {cap} must be a multiple of {UNROLL} and T "
                          f"{T} a power of two >= {UNROLL}")
@@ -206,6 +213,10 @@ def decode_emit_plain(tables: DecoderTables, regs: torch.Tensor,
     nib = torch.empty((cap // UNROLL, L), dtype=i32, device=dev)
     cpk = torch.zeros(L, dtype=torch.int64, device=dev)
     zero = torch.zeros(L, dtype=i32, device=dev)
+    fold = torch.zeros(L, dtype=i32, device=dev)
+    # the row before could start a fold of its copy (interval) run
+    fold_c = torch.zeros(L, dtype=torch.bool, device=dev)
+    fold_i = torch.zeros_like(fold_c)
 
     def where(c, a, b):
         return torch.where(c, a, b).to(i32)
@@ -485,6 +496,12 @@ def decode_emit_plain(tables: DecoderTables, regs: torch.Tensor,
         exmod3 = where(exmod3 >= R, 0, exmod3)
         em_active3 = em_active2 & ~node_fin
 
+        # ---- run folding (counted; the kernel writes these rows alone) ----
+        quiet = ~dec_active & ~early & ~can_pop & ~act_c & ~act_i
+        fold += (quiet & ((fold_c & emit_c) | (fold_i & emit_i))).to(i32)
+        fold_c = quiet & emit_c & em_active3
+        fold_i = quiet & emit_i & em_active3
+
         # ---- output row ----
         lane_done = (r["phase"] == P_DONE) & ~em_active3 & (qn_n == 0)
         halo = ex < r["e_rstart"]     # halo nodes feed the ring, unmarked
@@ -528,4 +545,4 @@ def decode_emit_plain(tables: DecoderTables, regs: torch.Tensor,
         r["e_markrow"], r["e_mdirty"], r["x"], r["e_x"],
         r["e_active"] * 1000000 + r["e_emitted"],
         r["n_qn"] * 1000 + r["n_qc"] * 100 + r["n_qi"] * 10 + r["n_qr"]])
-    return val, xch, nib, r["e_donerow"].clone(), done, diag
+    return val, xch, nib, r["e_donerow"].clone(), done, diag, fold

@@ -1004,7 +1004,7 @@ class TorchGraphDecoder:
         cap = pl["cap"] if auto else -(-cap // UNROLL) * UNROLL
         regs, ptrs, T = pl["regs"], pl["ptrs"], pl["T"]
         self._check_emit_layout(pl, cap)
-        val, xch, nib, rows, ok, _ = launch(regs, ptrs, cap, T)
+        val, xch, nib, rows, ok, _, fold = launch(regs, ptrs, cap, T)
         if not check:
             return val, xch, nib, cap
         if not bool(trace.fetch(ok.all())):
@@ -1012,9 +1012,9 @@ class TorchGraphDecoder:
                 lambda idx, c: launch(regs, ptrs, c, T, idx)[4],
                 ok, cap, self.step_bound("emit"), "decode_emit")
             self._check_emit_layout(pl, cap)
-            val, xch, nib, rows, ok, _ = launch(regs, ptrs, cap, T)
+            val, xch, nib, rows, ok, _, fold = launch(regs, ptrs, cap, T)
             _all_done(ok, cap, "decode_emit")
-        rows_np = trace.fetch(rows)
+        rows_np, pl["fold_np"] = trace.fetch(torch.stack([rows, fold]))
         pl["rows_np"] = rows_np
         if auto:
             # the true step need: later calls run a tight cap
@@ -1125,7 +1125,10 @@ class TorchGraphDecoder:
         artifact (`encode_blocks`, 0 on a serial one), the lane bounds not
         at a safe node (`unsafe_cuts`), and the longest lane's and the
         mean lane's rows in the verifying decode (`rows_max`, `rows_mean`,
-        the mean over all lanes). Each
+        the mean over all lanes), the rows that decode wrote by run folding
+        (`fold_rows`, summed over the lanes) and the longest and the mean
+        lane's rows less its folded ones, its full steps (`steps_max`,
+        `steps_mean`). Each
         `emit.split` keeps its rule (`rule`, `_split_rule`), the bisected
         `target`, the split's longest and mean lane cost (`max_cost`,
         `mean_cost`), its bounds not at a safe node (`unsafe_cuts`) and
@@ -1206,6 +1209,7 @@ class TorchGraphDecoder:
             pl["verified"] = True
             # the steady layout this plan keeps, on its plan.verify stage
             mc, rows = pl["post_meta"], pl["rows_np"]
+            steps = rows - pl["fold_np"]
             bstarts = self._encode_block_starts()
             step.set(fixup_rounds=int(mc["rounds"]),
                      dirty_nodes=len(mc["order_np"]),
@@ -1215,6 +1219,9 @@ class TorchGraphDecoder:
                      lanes=len(pl["starts_np"]), rows_max=int(rows.max()),
                      encode_blocks=0 if bstarts is None else len(bstarts),
                      rows_mean=float(rows.mean()),
+                     fold_rows=int(pl["fold_np"].sum()),
+                     steps_max=int(steps.max()),
+                     steps_mean=float(steps.mean()),
                      unsafe_cuts=unsafe_cuts(pl["starts_np"],
                                              pl.get("safe_np")))
         return succs2d, starts_flat, degs

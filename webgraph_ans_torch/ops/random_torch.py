@@ -588,7 +588,7 @@ class TorchEmitRandomAccess:
         did not finish within cap."""
         d = self.dec
         regs, ptrs = self._lane_inputs(qp)
-        val, _, _, rows, ok, diag = decode_emit(
+        val, _, _, rows, ok, diag, _ = decode_emit(
             d.tables, regs, ptrs, d.window, d.min_interval, cap, T=T)
         pad = qp < 0
         markrow, mdirty = diag[0], diag[1]
